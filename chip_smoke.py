@@ -4,22 +4,40 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero:
-  device   the card, its power limit, the kernel build, the native host libraries
-  kernel   the PairHMM kernel on bench.py's workload (64 reads x 151 bp, 16
+  device   the card, its power limit, the kernel builds, the native host libraries
+  kernel   the PairHMM pair kernel on bench.py's workload (64 reads x 151 bp, 16
            haplotypes x 400 bp, 32,768 pairs) and on ragged batches with N
            bases (rp 160 and 320), against its plain PyTorch version and the
            host f64 reference; timed with CUDA events beside its bound and the
            scalar C++ baseline
+  variants the port's entry point for each of gatk_tpu's pair kernels
+           (ops/pairhmm.PAIR_VARIANTS, the counterpart of
+           tools_dev/bench_kernels.py) on the bench workload and on a ragged
+           batch whose haplotypes hold N, each against the plain version under
+           its own N rule, timed
   sample   the synthetic 16,569 bp sample (~20,000 reads of 151 bp, 24 het SNVs
            and 6 het indels), written as a BAM and an indexed FASTA
   hc       HaplotypeCaller end to end (BAM -> VCF) through the port's CLI; the
-           planted variants must be called, and the kernel must have scored
+           planted variants must be called, and the kernels must have scored
            exactly the genotyped regions' read x haplotype pairs
-  gvcf     the same sample with -ERC GVCF on a 2 kb interval (the cartesian route)
-  main_launch  the largest kernel launch of the hc run, held against the plain
-           version and timed at that shape
-Then the card's name and power limit as nvidia-smi prints them, one JSON line
-listing every kernel of the port, and the result line.
+  gvcf     the same sample with -ERC GVCF on a 2 kb interval (the cartesian
+           route: the matrix kernel)
+  mutect2  a synthetic tumor-only sample of the same size (8 germline het SNVs,
+           12 somatic SNVs and 4 somatic indels at allele fractions 0.1-0.3)
+           through Mutect2 and FilterMutectCalls on the port's CLI; the planted
+           somatic variants must be called, the .stats file written, and the
+           kernels must have scored exactly the genotyped regions' pairs
+  main_launch  the largest pair-kernel launch of the hc run, held against the
+           plain version and timed at that shape
+  matrix   the cartesian kernel on the bench workload's 1,024 unique pairs, a
+           ragged rp 320 / hmax 2048 region with N, a region of 1,100
+           haplotypes and the largest launch of the gvcf run, against its plain
+           version; timed beside its bound and beside the pair kernel on the
+           same product expanded into pairs
+Each of the runs hc, gvcf, mutect2 and variants starts with every kernel's
+launch count at 0 and reads the counts at its end. Then the card's name and
+power limit as nvidia-smi prints them, one JSON line listing every kernel of
+the port, and the result line.
 Needs a CUDA device and the repository's sources; imports neither jax nor gatk_tpu.
 """
 import contextlib
@@ -38,7 +56,7 @@ KERNEL_TOL = 1e-4  # max |log10 kernel - log10 plain| and vs host f64, above the
 FP32_PEAK = 67e12  # H100 SXM, FP32 outside the tensor cores (FLOP/s)
 HBM_RATE = 3.35e12  # H100 SXM device memory (bytes/s)
 # FP32 operations per DP cell, counted from the plain version
-# (ops/pairhmm.py:pairhmm_pairs_reference): M = prior*(tmm*m + tim*(x + y)) is 5,
+# (ops/pairhmm.py:_forward): M = prior*(tmm*m + tim*(x + y)) is 5,
 # X = tmi*m + tii*x is 3, Y = tmd*m + tdd*y is 3
 FLOPS_PER_CELL = 11
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -81,6 +99,27 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+# --------------------------------------------------------------------------- counts
+
+
+def _entries():
+    """The port's kernel entries, each with its launch and pair counters."""
+    from gatk_tpu_torch.ops import pairhmm
+
+    return {"pairhmm_fwd": pairhmm.pairhmm_pairs,
+            "pairhmm_fwd_hap_n_mismatch": pairhmm.pairhmm_pairs_hap_n_mismatch,
+            "pairhmm_matrix": pairhmm.pairhmm_matrix}
+
+
+def reset_counts():
+    for entry in _entries().values():
+        entry.reset()
+
+
+def read_counts():
+    return {name: dict(launches=e.launches, pairs=e.pairs) for name, e in _entries().items()}
+
+
 # --------------------------------------------------------------------------- device
 
 
@@ -92,10 +131,10 @@ def phase_device():
     from gatk_tpu_torch.ops import _kernels, pdhmm, smith_waterman
 
     t0 = time.perf_counter()
-    _kernels.library("pairhmm_fwd")
+    _kernels.library("pairhmm_fwd")  # builds every kernel, one nvcc each, in parallel
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _kernels.BUILD_INFO["log"]["pairhmm_fwd"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+             for name, log in _kernels.BUILD_INFO["log"].items()}
     native = {m.__name__.split(".", 1)[1]: m._load_native() is not None
               for m in (bgzf, bam, read_prep, rtgraph, pileup, pdhmm, smith_waterman)}
     emit(dict(phase="device", name=torch.cuda.get_device_name(0),
@@ -134,9 +173,10 @@ def _bench_workload():
     return reads, haps, ri, hi
 
 
-def _ragged_workload(read_lens, hap_lens, seed):
+def _ragged_workload(read_lens, hap_lens, seed, hap_n=0.0):
     """Reads and haplotypes of the given lengths, cut from one sequence with ~2%
-    N (reads also get a few errors of their own)."""
+    N (reads also get a few errors of their own, haplotypes a share hap_n of Ns
+    of their own)."""
     rng = np.random.default_rng(seed)
     acgtn = np.frombuffer(b"ACGTN", dtype=np.uint8)
     span = max(hap_lens)
@@ -153,7 +193,10 @@ def _ragged_workload(read_lens, hap_lens, seed):
     haps = []
     for L in hap_lens:
         s = int(rng.integers(0, span - L + 1))
-        haps.append(master[s : s + L].tobytes())
+        h = master[s : s + L].copy()
+        if hap_n:
+            h[rng.random(L) < hap_n] = ord("N")
+        haps.append(h.tobytes())
     return reads, haps
 
 
@@ -175,14 +218,12 @@ def _device_pools(reads, haps, ri, hi, dev, rp=None, hmax=None):
     return pools, torch.from_numpy(ri).to(dev), torch.from_numpy(hi).to(dev)
 
 
-def _compare(pools, ri, hi, what):
-    """Kernel against the plain version on the same inputs: (kernel output,
-    max |kernel - plain| above the floor, pairs above it); the below-floor sets
-    must be identical. Launches here are not counted as the main path's."""
-    from gatk_tpu_torch.ops import _kernels, pairhmm
+def _check_close(got, want, what):
+    """Kernel output against the plain version's on the same inputs: (max
+    |kernel - plain| above the floor, entries above it); the below-floor sets
+    must be identical."""
+    from gatk_tpu_torch.ops import pairhmm
 
-    got = _kernels.pairhmm_fwd(pools, ri, hi)
-    want = pairhmm.pairhmm_pairs_reference(pools, ri, hi)
     torch.cuda.synchronize()
     check(got.shape == want.shape and not got.isnan().any(),
           f"{what}: kernel output has NaN or a wrong shape")
@@ -191,28 +232,48 @@ def _compare(pools, ri, hi, what):
           f"{what}: kernel and plain version disagree on which pairs are below the floor")
     err = (got[ok] - want[ok]).abs().max().item() if ok.any() else 0.0
     check(err <= KERNEL_TOL, f"{what}: max |kernel - plain| = {err} > {KERNEL_TOL}")
-    return got, err, int(ok.sum())
+    return err, int(ok.sum())
 
 
-def _timed(pools, ri, hi, plain_reps=3):
-    """CUDA-event medians of the kernel (30 launches) and the plain version on
-    the same inputs, and the bound: the larger of the FP32 time of the cells
-    these pairs need (rlen x hlen each) and the time to read the pools and the
-    pair lists once and write the output once."""
+def _compare(pools, ri, hi, what, hap_n_mismatch=False):
+    """The pair kernel against its plain version: (kernel output, max error
+    above the floor, pairs above it). Launches here are not counted as a path's."""
     from gatk_tpu_torch.ops import _kernels, pairhmm
 
-    kernel_ms = median_ms(lambda: _kernels.pairhmm_fwd(pools, ri, hi), reps=30, warmup=3)
-    plain_ms = median_ms(lambda: pairhmm.pairhmm_pairs_reference(pools, ri, hi),
+    got = _kernels.pairhmm_fwd(pools, ri, hi, hap_n_mismatch=hap_n_mismatch)
+    want = pairhmm.pairhmm_pairs_reference(pools, ri, hi, hap_n_mismatch=hap_n_mismatch)
+    return (got, *_check_close(got, want, what))
+
+
+def _bound(cells, in_bytes, out_bytes):
+    """The least time the card could take: the larger of the FP32 time of the
+    cells and the time to read the inputs once and write the output once."""
+    ops_ms = cells * FLOPS_PER_CELL / FP32_PEAK * 1e3
+    bytes_ms = (in_bytes + out_bytes) / HBM_RATE * 1e3
+    return dict(useful_cells=cells, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
+
+
+def _pool_bytes(pools):
+    return sum(t.numel() * t.element_size() for t in pools)
+
+
+def _timed(pools, ri, hi, plain_reps=3, hap_n_mismatch=False):
+    """CUDA-event medians of the pair kernel (30 launches) and the plain version
+    on the same inputs, beside the bound of the cells these pairs need (rlen x
+    hlen each), the pools and pair lists read once and the output written once."""
+    from gatk_tpu_torch.ops import _kernels, pairhmm
+
+    kernel_ms = median_ms(lambda: _kernels.pairhmm_fwd(pools, ri, hi, hap_n_mismatch),
+                          reps=30, warmup=3)
+    plain_ms = median_ms(lambda: pairhmm.pairhmm_pairs_reference(pools, ri, hi, hap_n_mismatch),
                          reps=plain_reps, warmup=1)
     n = ri.numel()
     cells = int((pools.rlen[ri.long()].long() * pools.hlen[hi.long()].long()).sum().item())
-    ops_ms = cells * FLOPS_PER_CELL / FP32_PEAK * 1e3
-    in_bytes = sum(t.numel() * t.element_size() for t in pools) + 8 * n
-    bytes_ms = (in_bytes + 4 * n) / HBM_RATE * 1e3
-    return dict(pairs=n, kernel_ms=kernel_ms, plain_ms=plain_ms, useful_cells=cells,
-                useful_gcups=cells / kernel_ms / 1e6, bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
+    bound = _bound(cells, _pool_bytes(pools) + 8 * n, 4 * n)
+    return dict(pairs=n, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                useful_gcups=cells / kernel_ms / 1e6, **bound)
 
 
 def _baseline_gcups(reads, haps, ri, hi, n_base=256):
@@ -278,40 +339,81 @@ def phase_kernel(dev):
     return res
 
 
-@contextlib.contextmanager
-def keeping_largest_launch():
-    """Keeps the inputs of the largest kernel launch made inside the block, so
-    that the kernel can be held against its plain version, and timed, at a shape
-    the main path gave it."""
-    from gatk_tpu_torch.ops import _kernels
-
-    launch = _kernels.pairhmm_fwd
-    kept = {"n": 0}
-
-    def keep(pools, ri, hi):
-        if ri.numel() > kept["n"]:
-            kept.update(n=ri.numel(), args=(pools, ri, hi))
-        return launch(pools, ri, hi)
-
-    _kernels.pairhmm_fwd = keep
-    try:
-        yield kept
-    finally:
-        _kernels.pairhmm_fwd = launch
+# --------------------------------------------------------------------------- variants
 
 
-def phase_main_launch(kept):
-    """The largest launch of the HaplotypeCaller run: kernel against plain, timed."""
-    check(kept["n"] > 0, "the HaplotypeCaller run made no kernel launch")
-    pools, ri, hi = kept["args"]
-    _, err, n_ok = _compare(pools, ri, hi, "HaplotypeCaller's largest launch")
-    res = dict(phase="main_launch", rp=pools.rp, hmax=pools.hmax, reads=pools.rbase.shape[1],
-               haps=pools.e.shape[1], above_floor=n_ok, max_abs_err=err, **_timed(pools, ri, hi))
+def phase_variants(dev):
+    """Each of gatk_tpu's pair kernels through the port's entry point for it, as
+    tools_dev/bench_kernels.py runs them: the bench workload and a ragged batch
+    whose haplotypes hold Ns of their own. The entries' outputs are held against
+    the plain version under each entry's N rule; then each N rule's kernel
+    instance is timed (v2, v4, v5, v6 and v7 share one instance)."""
+    from gatk_tpu_torch.ops import pairhmm
+
+    reads, haps, ri, hi = _bench_workload()
+    bench = _device_pools(reads, haps, ri, hi, dev, rp=160, hmax=512)
+    read_lens, hap_lens, rp, hmax = RAGGED[0]
+    rr, hh = _ragged_workload(read_lens, hap_lens, seed=3, hap_n=0.02)
+    ragged = _device_pools(rr, hh, *pairhmm.cartesian_pairs(len(rr), len(hh)), dev, rp=rp,
+                           hmax=hmax)
+
+    reset_counts()
+    outs = {name: (entry(*bench), entry(*ragged)) for name, entry in pairhmm.PAIR_VARIANTS.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_rules = {rule: sum(e.hap_n_mismatch == rule for e in pairhmm.PAIR_VARIANTS.values())
+               for rule in (False, True)}
+    check(counts["pairhmm_fwd"]["launches"] == 2 * n_rules[False]
+          and counts["pairhmm_fwd_hap_n_mismatch"]["launches"] == 2 * n_rules[True],
+          f"the variant entries did not launch their kernel instances: {counts}")
+
+    plain = {rule: tuple(pairhmm.pairhmm_pairs_reference(*w, hap_n_mismatch=rule)
+                         for w in (bench, ragged)) for rule in (False, True)}
+    ok = plain[True][1] > pairhmm.MIN_ACCEPTED_LOG10
+    rule_gap = (plain[True][1] - plain[False][1])[ok].abs().max().item()
+    check(rule_gap > 1e-2, f"the ragged batch does not tell the N rules apart ({rule_gap})")
+    timed = {rule: _timed(*bench, plain_reps=2, hap_n_mismatch=rule) for rule in (False, True)}
+    variants = []
+    for name, entry in pairhmm.PAIR_VARIANTS.items():
+        rule = entry.hap_n_mismatch
+        err_b, _ = _check_close(outs[name][0], plain[rule][0], f"{name} bench")
+        err_r, n_ok = _check_close(outs[name][1], plain[rule][1], f"{name} ragged/N")
+        variants.append(dict(jax=name, hap_n_mismatch=rule,
+                             max_abs_err_bench=err_b, max_abs_err_ragged=err_r,
+                             ragged_above_floor=n_ok, kernel_ms=timed[rule]["kernel_ms"],
+                             plain_ms=timed[rule]["plain_ms"], bound_ms=timed[rule]["bound_ms"]))
+    res = dict(phase="variants", counts=counts, ragged_pairs=ragged[1].numel(),
+               n_rule_gap=rule_gap, variants=variants,
+               timed={"host_rule": timed[False], "hap_n_mismatch": timed[True]})
     emit(res)
     return res
 
 
-# --------------------------------------------------------------------------- hc / gvcf
+# --------------------------------------------------------------------------- hc / gvcf / mutect2
+
+
+@contextlib.contextmanager
+def keeping_largest_launch(kernel):
+    """Keeps the inputs of the largest launch of `kernel` (a wrapper of
+    ops/_kernels: "pairhmm_fwd" or "pairhmm_matrix") made inside the block, so
+    that the kernel can be held against its plain version, and timed, at a shape
+    the main path gave it."""
+    from gatk_tpu_torch.ops import _kernels
+
+    launch = getattr(_kernels, kernel)
+    kept = {"n": 0}
+
+    def keep(pools, *args, **kwargs):
+        n = args[0].numel() if args else pools.rbase.shape[1] * pools.e.shape[1]
+        if n > kept["n"]:
+            kept.update(n=n, args=(pools, *args))
+        return launch(pools, *args, **kwargs)
+
+    setattr(_kernels, kernel, keep)
+    try:
+        yield kept
+    finally:
+        setattr(_kernels, kernel, launch)
 
 
 @contextlib.contextmanager
@@ -340,6 +442,42 @@ def counting_genotyped_pairs(hc_engine):
         hc_engine.compute_pairhmm_likelihoods = compute
 
 
+@contextlib.contextmanager
+def counting_m2_regions(m2_engine):
+    """Counts reads x haplotypes of every region Mutect2Engine genotyped, and
+    times its host stages in STAGES (activity: the active-region scan;
+    prepare_region: finalize-reads, assembly, read prep and pair dispatch;
+    finish_region: waiting for the likelihoods and somatic genotyping; flush:
+    the pool's last launch). Restores what it wraps."""
+    from gatk_tpu_torch.ops import pairhmm
+    from gatk_tpu_torch.utils.stopwatch import STAGES
+
+    total = [0]
+    eng = m2_engine.Mutect2Engine
+    saved = (eng._prepare_region, eng._finish_region, m2_engine.m2_activity.find_active_regions,
+             pairhmm.PoolBatcher.flush)
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            with STAGES.stage(name):
+                return fn(*args, **kwargs)
+        return run
+
+    def finish_counted(self, prep, sample_of_read=None):
+        total[0] += len(prep["prepped"]) * len(prep["haplotypes"])
+        return saved[1](self, prep, sample_of_read)
+
+    eng._prepare_region = timed("prepare_region", saved[0])
+    eng._finish_region = timed("finish_region", finish_counted)
+    m2_engine.m2_activity.find_active_regions = timed("activity", saved[2])
+    pairhmm.PoolBatcher.flush = timed("flush", saved[3])
+    try:
+        yield total
+    finally:
+        (eng._prepare_region, eng._finish_region, m2_engine.m2_activity.find_active_regions,
+         pairhmm.PoolBatcher.flush) = saved
+
+
 def _records(path):
     out = []
     with open(path) as fh:
@@ -347,47 +485,50 @@ def _records(path):
             if not line.startswith("#"):
                 f = line.rstrip("\n").split("\t")
                 out.append(dict(pos=int(f[1]) - 1, ref=f[3], alts=f[4].split(","),
-                                gt=f[9].split(":")[0], line=line))
+                                filter=f[6], gt=f[9].split(":")[0], line=line))
     return out
 
 
-def _run_hc(argv, hc_engine):
+def _run_tool(argv, counting):
+    """One run of a tool through the port's CLI with every kernel count at 0
+    before it: (wall s, counts, stage report). The kernels must have scored
+    exactly the pairs of the regions `counting` saw genotyped."""
     from gatk_tpu_torch import cli
-    from gatk_tpu_torch.ops import pairhmm
     from gatk_tpu_torch.utils.stopwatch import STAGES
 
     STAGES.reset()
-    pairhmm.pairhmm_pairs.reset()  # counts of the run below only
-    with counting_genotyped_pairs(hc_engine) as genotyped:
+    reset_counts()  # counts of the run below only
+    with counting as genotyped:
         t0 = time.perf_counter()
-        rc = cli.main(["HaplotypeCaller", *argv])
+        rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(rc == 0, f"HaplotypeCaller {' '.join(argv)} exited {rc}")
-    launches, pairs = pairhmm.pairhmm_pairs.launches, pairhmm.pairhmm_pairs.pairs
-    check(launches > 0, "the PairHMM kernel was never launched by HaplotypeCaller")
-    check(pairs == genotyped[0], f"kernel scored {pairs} pairs, the genotyped regions "
-                                 f"hold {genotyped[0]} reads x haplotypes")
-    return wall, launches, pairs, STAGES.report()
+    check(rc == 0, f"{' '.join(argv)} exited {rc}")
+    counts = read_counts()
+    pairs = sum(c["pairs"] for c in counts.values())
+    check(pairs == genotyped[0], f"{argv[0]}: the kernels scored {pairs} pairs, the genotyped "
+                                 f"regions hold {genotyped[0]} reads x haplotypes")
+    return wall, counts, STAGES.report()
 
 
-def _device_profile(argv):
-    """The same HaplotypeCaller run again under torch.profiler: device time of the
-    PairHMM kernel and of all device work (copies included) beside the run's wall
-    time. The profiler slows the host, so this wall is not the one reported above."""
+def _device_profile(argv, kernel_names):
+    """The same run again under torch.profiler: device time of the given
+    kernels and of all device work (copies included) beside the run's wall time.
+    The profiler slows the host, so this wall is not the one reported above."""
     from torch.profiler import ProfilerActivity, profile
 
     from gatk_tpu_torch import cli
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rc = cli.main(["HaplotypeCaller", *argv])
+        rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(rc == 0, f"profiled HaplotypeCaller {' '.join(argv)} exited {rc}")
+    check(rc == 0, f"profiled {' '.join(argv)} exited {rc}")
     stats = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in stats)
-    kernel_us = sum(e.self_device_time_total for e in stats if "pairhmm_fwd_kernel" in e.key)
+    kernel_us = sum(e.self_device_time_total for e in stats
+                    if any(k in e.key for k in kernel_names))
     if busy_us == 0:  # the profiler saw no device activity: say so, invent nothing
         return dict(profiled_wall_s=wall, device_kernel_ms="not measured",
                     device_busy_ms="not measured", device_idle_share="not measured")
@@ -395,13 +536,24 @@ def _device_profile(argv):
                 device_busy_ms=busy_us / 1e3, device_idle_share=1 - busy_us / 1e6 / wall)
 
 
+def _indels_called(planted, recs):
+    """Planted indels with a called indel of the same length change within 20 bp
+    (an indel in a repeat is reported left-aligned)."""
+    return [v.pos for v in planted
+            if any(abs(r["pos"] - v.pos) <= 20
+                   and len(r["ref"]) - len(r["alts"][0]) == len(v.ref) - len(v.alt)
+                   for r in recs)]
+
+
 def phase_hc(sample, tmp):
     from gatk_tpu_torch.calling import hc_engine
 
     out = os.path.join(tmp, "out.vcf")
-    with keeping_largest_launch() as kept:
-        wall, launches, pairs, stages = _run_hc(
-            ["-I", sample["bam"], "-R", sample["fasta"], "-O", out], hc_engine)
+    argv = ["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"], "-O", out]
+    with keeping_largest_launch("pairhmm_fwd") as kept:
+        wall, counts, stages = _run_tool(argv, counting_genotyped_pairs(hc_engine))
+    check(counts["pairhmm_fwd"]["launches"] > 0,
+          "the PairHMM kernel was never launched by HaplotypeCaller")
     recs = _records(out)
     by_pos = {r["pos"]: r for r in recs}
     snvs = [v for v in sample["variants"] if v.is_snv]
@@ -409,16 +561,16 @@ def phase_hc(sample, tmp):
     missed_snv = [v.pos for v in snvs
                   if not (v.pos in by_pos and by_pos[v.pos]["ref"] == v.ref
                           and by_pos[v.pos]["alts"] == [v.alt] and by_pos[v.pos]["gt"] == "0/1")]
-    indel_called = [v.pos for v in indels
-                    if any(abs(r["pos"] - v.pos) <= 20 and len(r["ref"]) != len(r["alts"][0])
-                           for r in recs)]
-    profiled = _device_profile(["-I", sample["bam"], "-R", sample["fasta"], "-O", out + ".2"])
+    indel_called = _indels_called(indels, recs)
+    profiled = _device_profile(argv[:-1] + [out + ".2"], ["pairhmm_fwd_kernel",
+                                                          "pairhmm_matrix_kernel"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second HaplotypeCaller run wrote a different VCF")
     res = dict(phase="hc", reads=sample["n_reads"], records=len(recs), wall_s=wall,
                reads_per_s=sample["n_reads"] / wall, snvs_called=len(snvs) - len(missed_snv),
                snvs_planted=len(snvs), indels_called=len(indel_called),
-               indels_planted=len(indels), launches=launches, pairs=pairs, stages=stages,
+               indels_planted=len(indels), launches=counts["pairhmm_fwd"]["launches"],
+               pairs=sum(c["pairs"] for c in counts.values()), counts=counts, stages=stages,
                **profiled)
     emit(res)
     check(not missed_snv, f"planted SNVs not called as 0/1: {missed_snv}")
@@ -435,9 +587,12 @@ def phase_gvcf(sample, tmp):
     start = max(0, first - 200)
     end = start + 2000  # 2 kb holding the first planted variants
     interval = f"{sample['contig']}:{start + 1}-{end}"
-    wall, launches, pairs, stages = _run_hc(
-        ["-I", sample["bam"], "-R", sample["fasta"], "-O", out, "-ERC", "GVCF",
-         "-L", interval], hc_engine)
+    with keeping_largest_launch("pairhmm_matrix") as kept:
+        wall, counts, stages = _run_tool(
+            ["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"], "-O", out,
+             "-ERC", "GVCF", "-L", interval], counting_genotyped_pairs(hc_engine))
+    check(counts["pairhmm_matrix"]["launches"] > 0,
+          "the cartesian kernel was never launched by HaplotypeCaller -ERC GVCF")
     recs = _records(out)
     planted = [v for v in sample["variants"] if start <= v.pos < end]
     found = [v.pos for v in planted
@@ -445,10 +600,138 @@ def phase_gvcf(sample, tmp):
                     for r in recs)]
     res = dict(phase="gvcf", interval=interval, records=len(recs), wall_s=wall,
                variants_planted=len(planted), variants_called=len(found),
-               launches=launches, pairs=pairs, stages=stages)
+               launches=counts["pairhmm_matrix"]["launches"],
+               pairs=sum(c["pairs"] for c in counts.values()), counts=counts, stages=stages)
     emit(res)
     check(len(found) == len(planted) and planted, f"GVCF missed planted variants: "
                                                   f"{sorted(set(v.pos for v in planted) - set(found))}")
+    return res, kept
+
+
+def phase_mutect2(tmp):
+    from gatk_tpu_torch import cli
+    from gatk_tpu_torch.mutect import engine as m2_engine
+    from gatk_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    sample = synthetic.write_tumor_sample(os.path.join(tmp, "tumor"), seed=0)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "tumor.vcf")
+    argv = ["Mutect2", "-I", sample["bam"], "-R", sample["fasta"], "-O", out]
+    with keeping_largest_launch("pairhmm_fwd") as kept:
+        wall, counts, stages = _run_tool(argv, counting_m2_regions(m2_engine))
+    check(counts["pairhmm_fwd"]["launches"] > 0, "the PairHMM kernel was never launched by Mutect2")
+    check(os.path.exists(out + ".stats"), "Mutect2 wrote no .stats file")
+    recs = _records(out)
+    called = {(r["pos"], r["ref"], r["alts"][0]) for r in recs}
+    snvs = [v for v in sample["somatic"] if v.is_snv]
+    indels = [v for v in sample["somatic"] if not v.is_snv]
+    missed_snv = [v.pos for v in snvs if (v.pos, v.ref, v.alt) not in called]
+    indel_called = _indels_called(indels, recs)
+    germline_called = sum((v.pos, v.ref, v.alt) in called for v in sample["germline"])
+
+    filtered = os.path.join(tmp, "tumor.filtered.vcf")
+    t0 = time.perf_counter()
+    rc = cli.main(["FilterMutectCalls", "-V", out, "-O", filtered])
+    filter_s = time.perf_counter() - t0
+    check(rc == 0, f"FilterMutectCalls exited {rc}")
+    frecs = _records(filtered)
+    check(len(frecs) == len(recs), "FilterMutectCalls dropped or added records")
+    passing = {(r["pos"], r["ref"], r["alts"][0]) for r in frecs if r["filter"] == "PASS"}
+    somatic_pass = sum((v.pos, v.ref, v.alt) in passing for v in sample["somatic"])
+
+    profiled = _device_profile(argv[:-1] + [out + ".2"], ["pairhmm_fwd_kernel",
+                                                          "pairhmm_matrix_kernel"])
+    with open(out, "rb") as a, open(out + ".2", "rb") as b:
+        check(a.read() == b.read(), "a second Mutect2 run wrote a different VCF")
+    largest = None
+    if kept["n"]:
+        pools, ri, hi = kept["args"]
+        _, err, n_ok = _compare(pools, ri, hi, "Mutect2's largest launch")
+        largest = dict(reads=pools.rbase.shape[1], haps=pools.e.shape[1], above_floor=n_ok,
+                       max_abs_err=err, **_timed(pools, ri, hi))
+    res = dict(phase="mutect2", contig_len=sample["length"], reads=sample["n_reads"],
+               write_s=write_s, records=len(recs), wall_s=wall,
+               reads_per_s=sample["n_reads"] / wall, somatic_snvs_planted=len(snvs),
+               somatic_snvs_called=len(snvs) - len(missed_snv),
+               somatic_indels_planted=len(indels), somatic_indels_called=len(indel_called),
+               germline_planted=len(sample["germline"]), germline_called=germline_called,
+               filter_s=filter_s, passing=len(passing), somatic_passing=somatic_pass,
+               launches=counts["pairhmm_fwd"]["launches"],
+               pairs=sum(c["pairs"] for c in counts.values()), counts=counts,
+               stages=stages, largest_launch=largest, **profiled)
+    emit(res)
+    check(not missed_snv, f"planted somatic SNVs not in the unfiltered VCF: {missed_snv}")
+    check(len(indel_called) >= len(indels) - 1,
+          f"only {len(indel_called)} of {len(indels)} planted somatic indels called")
+    return res
+
+
+def phase_main_launch(kept):
+    """The largest launch of the HaplotypeCaller run: kernel against plain, timed."""
+    check(kept["n"] > 0, "the HaplotypeCaller run made no kernel launch")
+    pools, ri, hi = kept["args"]
+    _, err, n_ok = _compare(pools, ri, hi, "HaplotypeCaller's largest launch")
+    res = dict(phase="main_launch", rp=pools.rp, hmax=pools.hmax, reads=pools.rbase.shape[1],
+               haps=pools.e.shape[1], above_floor=n_ok, max_abs_err=err, **_timed(pools, ri, hi))
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------------------------- matrix
+
+
+def _matrix_case(pools, what, plain_reps=3, timed=True):
+    """The cartesian kernel against its plain version on `pools`, and, when
+    timed, CUDA-event medians of the kernel, the plain version and the pair
+    kernel over the same product expanded into pairs, beside the bound of the
+    cells (sum of rlen x sum of hlen), the pools read once and the (NH, NR)
+    output written once."""
+    from gatk_tpu_torch.ops import _kernels, pairhmm
+
+    got = _kernels.pairhmm_matrix(pools)
+    err, n_ok = _check_close(got, pairhmm.pairhmm_matrix_reference(pools), what)
+    nr, nh = pools.rbase.shape[1], pools.e.shape[1]
+    res = dict(case=what, rp=pools.rp, hmax=pools.hmax, reads=nr, haps=nh, pairs=nr * nh,
+               above_floor=n_ok, max_abs_err=err)
+    if not timed:
+        return res
+    ri, hi = (torch.from_numpy(a).to(pools.rbase.device) for a in pairhmm.cartesian_pairs(nr, nh))
+    _, err_fwd = _check_close(_kernels.pairhmm_fwd(pools, ri, hi).reshape(nh, nr), got,
+                              f"{what}: pair kernel over the expanded product")
+    kernel_ms = median_ms(lambda: _kernels.pairhmm_matrix(pools), reps=30, warmup=3)
+    fwd_ms = median_ms(lambda: _kernels.pairhmm_fwd(pools, ri, hi), reps=30, warmup=3)
+    plain_ms = median_ms(lambda: pairhmm.pairhmm_matrix_reference(pools), reps=plain_reps,
+                         warmup=1)
+    cells = int(pools.rlen.long().sum().item()) * int(pools.hlen.long().sum().item())
+    bound = _bound(cells, _pool_bytes(pools), 4 * nr * nh)
+    return dict(res, kernel_ms=kernel_ms, pair_kernel_expanded_ms=fwd_ms, plain_ms=plain_ms,
+                useful_gcups=cells / kernel_ms / 1e6, **bound)
+
+
+def phase_matrix(dev, kept):
+    from gatk_tpu_torch.ops import pairhmm
+
+    cases = []
+    reads, haps, _, _ = _bench_workload()  # all 64 x 16 unique pairs
+    a, b = pairhmm.cartesian_pairs(len(reads), len(haps))
+    pools, _, _ = _device_pools(reads, haps, a, b, dev, rp=160, hmax=512)
+    cases.append(_matrix_case(pools, "bench 64 x 16"))
+    read_lens, hap_lens, rp, hmax = RAGGED[1]
+    rr, hh = _ragged_workload(read_lens, hap_lens, seed=2)
+    a, b = pairhmm.cartesian_pairs(len(rr), len(hh))
+    pools, _, _ = _device_pools(rr, hh, a, b, dev, rp=rp, hmax=hmax)
+    cases.append(_matrix_case(pools, f"ragged/N rp={rp} hmax={hmax}", timed=False))
+    # more haplotypes than the pool holds (PoolBatcher sends these here)
+    rng = np.random.default_rng(7)
+    rr, hh = _ragged_workload(rng.integers(100, 152, 24), rng.integers(150, 451, 1100), seed=4)
+    a, b = pairhmm.cartesian_pairs(len(rr), len(hh))
+    pools, _, _ = _device_pools(rr, hh, a, b, dev, rp=160, hmax=512)
+    cases.append(_matrix_case(pools, "24 reads x 1,100 haplotypes", plain_reps=2))
+    check(kept["n"] > 0, "the -ERC GVCF run made no cartesian launch")
+    cases.append(_matrix_case(kept["args"][0], "gvcf largest launch"))
+    res = dict(phase="matrix", cases=cases, max_abs_err=max(c["max_abs_err"] for c in cases))
+    emit(res)
     return res
 
 
@@ -460,6 +743,7 @@ def main():
     t_start = time.perf_counter()
     phase_device()
     k = phase_kernel(dev)
+    var = phase_variants(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         from gatk_tpu_torch.utils import synthetic
 
@@ -467,19 +751,53 @@ def main():
         sample = synthetic.write_sample(tmp, seed=0)
         emit(dict(phase="sample", contig_len=sample["length"], reads=sample["n_reads"],
                   variants=len(sample["variants"]), write_s=time.perf_counter() - t0))
-        hc, kept = phase_hc(sample, tmp)
-        phase_gvcf(sample, tmp)
-    main_launch = phase_main_launch(kept)
+        hc, kept_hc = phase_hc(sample, tmp)
+        gvcf, kept_gvcf = phase_gvcf(sample, tmp)
+        m2 = phase_mutect2(tmp)
+    main_launch = phase_main_launch(kept_hc)
+    mat = phase_matrix(dev, kept_gvcf)
     smi = nvidia_smi_line()
-    # times at the shape of the HaplotypeCaller run's largest launch; the bench
-    # workload's are in the kernel phase's line. No single PyTorch call computes
+
+    # launches on each path, counted from 0 at its start; a kernel is timed at
+    # the largest launch of the path it serves. No single PyTorch call computes
     # the PairHMM, so there is no library time.
-    err = max(k["max_abs_err_bench"], k["max_abs_err_ragged"], main_launch["max_abs_err"])
-    kernels = [dict(name="pairhmm_fwd", route="cuda", source="gatk_tpu_torch/csrc/pairhmm_fwd.cu",
-                    replaces="gatk_tpu/ops/pairhmm_tpu.py:746", launches=hc["launches"],
-                    max_abs_err=err, max_abs_diff=err, ms=main_launch["kernel_ms"],
-                    plain_ms=main_launch["plain_ms"], bound_ms=main_launch["bound_ms"],
-                    bound_by=main_launch["bound_by"], library_ms=None)]
+    def by_path(name):
+        return {path: r["counts"][name]["launches"]
+                for path, r in (("hc", hc), ("gvcf", gvcf), ("mutect2", m2), ("variants", var))}
+
+    fwd_err = max(k["max_abs_err_bench"], k["max_abs_err_ragged"], main_launch["max_abs_err"],
+                  *(v["max_abs_err_ragged"] for v in var["variants"] if not v["hap_n_mismatch"]))
+    hapn_err = max(max(v["max_abs_err_bench"], v["max_abs_err_ragged"])
+                   for v in var["variants"] if v["hap_n_mismatch"])
+    gv = mat["cases"][-1]
+    hapn = var["timed"]["hap_n_mismatch"]
+    src = "gatk_tpu_torch/csrc/"
+    tpu = "gatk_tpu/ops/pairhmm_tpu.py"
+    kernels = [
+        dict(name="pairhmm_fwd", route="cuda", source=src + "pairhmm_fwd.cu",
+             replaces=f"{tpu}:746 (_pairhmm_kernel_v6, haplotype N scored as the host does), "
+                      f"{tpu}:56 (_pairhmm_kernel, v1)",
+             launches=hc["counts"]["pairhmm_fwd"]["launches"], launches_by_path=by_path(
+                 "pairhmm_fwd"), max_abs_err=fwd_err, ms=main_launch["kernel_ms"],
+             plain_ms=main_launch["plain_ms"], bound_ms=main_launch["bound_ms"],
+             bound_by=main_launch["bound_by"], library_ms=None),
+        dict(name="pairhmm_matrix", route="cuda", source=src + "pairhmm_matrix.cu",
+             replaces=f"{tpu}:151 (_pairhmm_matrix_kernel)",
+             launches=gvcf["counts"]["pairhmm_matrix"]["launches"],
+             launches_by_path=by_path("pairhmm_matrix"), max_abs_err=mat["max_abs_err"],
+             ms=gv["kernel_ms"], plain_ms=gv["plain_ms"], bound_ms=gv["bound_ms"],
+             bound_by=gv["bound_by"], library_ms=None),
+        dict(name="pairhmm_fwd_hap_n_mismatch", route="cuda", source=src + "pairhmm_fwd.cu",
+             replaces=f"{tpu}:320 (_pairhmm_kernel_v2), {tpu}:445 (_pairhmm_kernel_v4), "
+                      f"{tpu}:622 (_pairhmm_kernel_v5), {tpu}:857 (_pairhmm_kernel_v7), "
+                      f"{tpu}:746 (_pairhmm_kernel_v6 with its own N rule)",
+             launches=var["counts"]["pairhmm_fwd_hap_n_mismatch"]["launches"],
+             launches_by_path=by_path("pairhmm_fwd_hap_n_mismatch"), max_abs_err=hapn_err,
+             ms=hapn["kernel_ms"], plain_ms=hapn["plain_ms"], bound_ms=hapn["bound_ms"],
+             bound_by=hapn["bound_by"], library_ms=None),
+    ]
+    for kd in kernels:
+        kd["max_abs_diff"] = kd["max_abs_err"]
     print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -12,17 +12,25 @@ Layout (the same as gatk_tpu's pack_reads / pack_haps): read tables are
 stored reversed in an (He, NH) array, He = hmax + 2*rp + E_OFF, so that
 haplotype base k sits at row E_OFF + rp - 1 + hmax - 1 - k.
 
-One entry point computes every pair: `pairhmm_pairs(pools, ri, hi)` scores
-pair p = (read column ri[p], haplotype column hi[p]) of device-resident uint8
-pools. On a CUDA tensor it launches the hand-written Hopper kernel
-(csrc/pairhmm_fwd.cu) and raises if the launch fails; on a CPU tensor it runs
-the plain PyTorch wavefront `pairhmm_pairs_reference`, which is also the
-kernel's oracle. The pool flush of `PoolBatcher`, the cartesian route of
-`start_likelihood_matrix` and `compute_log10_likelihoods` all go through it.
+Two kernels compute every pair, each behind an entry with launch and pair
+counters. On a CUDA tensor an entry launches its hand-written Hopper kernel and
+raises if the launch fails; on a CPU tensor it runs its plain PyTorch version,
+which is also the kernel's oracle:
+  * `pairhmm_pairs(pools, ri, hi)` scores pair p = (read column ri[p],
+    haplotype column hi[p]) of device-resident uint8 pools
+    (csrc/pairhmm_fwd.cu; plain version `pairhmm_pairs_reference`). The pool
+    flush of `PoolBatcher` and `compute_log10_likelihoods` go through it.
+  * `pairhmm_matrix(pools)` scores every read column with every haplotype
+    column (csrc/pairhmm_matrix.cu; plain version `pairhmm_matrix_reference`).
+    The cartesian route `start_likelihood_matrix` (-ERC GVCF, and the regions
+    too large for the pool) goes through it.
 
 Haplotype N: an N on either side scores as a match, as in the host f64 model
-(pairhmm_model.base_priors) and gatk_tpu's CPU scan; gatk_tpu's production TPU
-kernel (_pairhmm_kernel_v6) scores a haplotype N as a mismatch instead.
+(pairhmm_model.base_priors) and gatk_tpu's CPU scan and matrix kernel.
+gatk_tpu's other pair kernels (v2, v4-v7, the production v6 among them) score
+a haplotype N as a mismatch; `pairhmm_pairs_hap_n_mismatch` is the pair
+kernel's instance with that rule, and `PAIR_VARIANTS` maps each of gatk_tpu's
+pair-kernel functions to the port's entry with its rule.
 """
 from __future__ import annotations
 
@@ -223,38 +231,29 @@ def from_jax_packed(packed: dict, device="cpu", cartesian: bool = False):
     return pools, torch.from_numpy(ri).to(device), torch.from_numpy(hi).to(device)
 
 
-def pairhmm_pairs_reference(pools: Pools, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch PairHMM over a pair list: (n,) f32 log10 likelihoods.
+def _forward(rbase, rq, iq, dq, gcp, rlen, e, hlen, rp, hmax, hap_n_mismatch):
+    """The plain wavefront over any broadcast of reads against haplotypes.
 
-    The math of gatk_tpu's _pairhmm_scan_call (pairhmm_tpu.py:1059-1134) taken
-    over pairs instead of a cartesian product: an anti-diagonal wavefront on
-    (rp, n) f32 state, with padded read rows (i > rlen) carrying X through
+    rbase..gcp: (rp, *R) read tables, rlen (*R); e: (He, *H) packed haplotypes,
+    hlen (*H); R and H broadcast to the output shape S. Anti-diagonal wavefront
+    on (rp, *S) f32 state, with padded read rows (i > rlen) carrying X through
     (tmi = tii = 1) to the last row, whose M + X is summed over j = 1..hlen.
     The sweep stops after diagonal rp - 1 + max(hlen); later diagonals add
-    nothing."""
-    rp, hmax = pools.rp, pools.hmax
-    dev = pools.rbase.device
+    nothing. Haplotypes of length 0 give NEG_INF."""
+    dev = rbase.device
     f32 = torch.float32
-    ri = ri.long()
-    hi = hi.long()
-    n = ri.numel()
-    if n == 0:
-        return torch.empty(0, dtype=f32, device=dev)
     neg = -LN10 / 10.0
+    e_ins = torch.exp(iq.to(f32) * neg)
+    e_del = torch.exp(dq.to(f32) * neg)
+    e_gcp = torch.exp(gcp.to(f32) * neg)
+    e_base = torch.exp(rq.to(f32) * neg)
+    rbase = rbase.to(torch.int32)
+    rlen = rlen.to(torch.int64)
+    hlen = hlen.to(torch.int64)
+    shape = torch.broadcast_shapes(rlen.shape, hlen.shape)
 
-    def g(a):
-        return a[:, ri].to(f32)
-
-    e_ins = torch.exp(g(pools.iq) * neg)
-    e_del = torch.exp(g(pools.dq) * neg)
-    e_gcp = torch.exp(g(pools.gcp) * neg)
-    e_base = torch.exp(g(pools.rq) * neg)
-    rbase = pools.rbase[:, ri].to(torch.int32)
-    rlen = pools.rlen[ri].to(torch.int64)
-    hlen = pools.hlen[hi].to(torch.int64)
-
-    iota = torch.arange(rp, device=dev)[:, None]
-    pad = iota > rlen[None, :]
+    iota = torch.arange(rp, device=dev).view(rp, *([1] * len(shape)))
+    pad = iota > rlen[None]
     zero = torch.zeros((), dtype=f32, device=dev)
     one = torch.ones((), dtype=f32, device=dev)
     tmm = torch.where(pad, zero, one - torch.minimum(one, e_ins + e_del))
@@ -268,13 +267,13 @@ def pairhmm_pairs_reference(pools: Pools, ri: torch.Tensor, hi: torch.Tensor) ->
 
     y0 = torch.where(hlen > 0, (2.0 ** INIT_LOG2) / hlen.clamp(min=1).to(f32), zero)
     row0 = iota == 0
-    y0_full = torch.where(row0, y0[None, :], zero)  # (rp, n)
-    e_pairs = pools.e[:, hi].to(torch.int32)  # (He, n)
+    y0_full = torch.where(row0, y0[None], zero)  # (rp, *H)
+    e = e.to(torch.int32)
 
-    zeros = torch.zeros((rp, n), dtype=f32, device=dev)
-    m1, x1, y1 = zeros, zeros, y0_full  # diagonal d-1 (d = 0: cell (0, 0))
+    zeros = torch.zeros((rp, *shape), dtype=f32, device=dev)
+    m1, x1, y1 = zeros, zeros, y0_full.expand(rp, *shape)  # diagonal d-1 (d = 0: cell (0, 0))
     m2, x2, y2 = zeros, zeros, zeros  # diagonal d-2
-    acc = torch.zeros(n, dtype=f32, device=dev)
+    acc = torch.zeros(shape, dtype=f32, device=dev)
     last = rp - 1
     num_d = rp - 1 + min(int(hlen.max()), hmax)
 
@@ -283,8 +282,10 @@ def pairhmm_pairs_reference(pools: Pools, ri: torch.Tensor, hi: torch.Tensor) ->
 
     for d in range(1, num_d + 1):
         start = E_OFF + hmax + rp - 1 - d
-        w = e_pairs[start : start + rp]  # W[i] = hap[d - i - 1]
-        match = (rbase == w) | (rbase == N_BASE) | (w == N_BASE)
+        w = e[start : start + rp]  # W[i] = hap[d - i - 1]
+        match = (rbase == w) | (rbase == N_BASE)
+        if not hap_n_mismatch:
+            match = match | (w == N_BASE)
         prior = torch.where(match, peq, pne)
         m_new = prior * (tmm * roll1(m2) + tim * (roll1(x2) + roll1(y2)))
         x_new = tmi * roll1(m1) + tii * roll1(x1)
@@ -307,11 +308,38 @@ def pairhmm_pairs_reference(pools: Pools, ri: torch.Tensor, hi: torch.Tensor) ->
     )
 
 
-class _PairEntry:
-    """`pairhmm_pairs(pools, ri, hi)`: CUDA tensors launch the Hopper kernel
-    (ops/_kernels.pairhmm_fwd), CPU tensors run pairhmm_pairs_reference.
+def pairhmm_pairs_reference(pools: Pools, ri: torch.Tensor, hi: torch.Tensor,
+                            hap_n_mismatch: bool = False) -> torch.Tensor:
+    """Plain PyTorch PairHMM over a pair list: (n,) f32 log10 likelihoods.
 
-    `launches` and `pairs` count kernel launches and the pairs they scored;
+    The math of gatk_tpu's _pairhmm_scan_call (pairhmm_tpu.py:1059-1134) taken
+    over pairs instead of a cartesian product. hap_n_mismatch=False scores an N
+    on either side as a match (the host rule and the scan's); True scores a
+    haplotype N as a mismatch unless the read base is N too, as gatk_tpu's
+    kernels v2 and v4-v7 do (their pne = peq only where the read base is N)."""
+    if ri.numel() == 0:
+        return torch.empty(0, dtype=torch.float32, device=pools.rbase.device)
+    ri = ri.long()
+    hi = hi.long()
+    return _forward(*(t[:, ri] for t in (pools.rbase, pools.rq, pools.iq, pools.dq, pools.gcp)),
+                    pools.rlen[ri], pools.e[:, hi], pools.hlen[hi], pools.rp, pools.hmax,
+                    hap_n_mismatch)
+
+
+def pairhmm_matrix_reference(pools: Pools) -> torch.Tensor:
+    """Plain PyTorch PairHMM over every read column x every haplotype column of
+    `pools`: (NH, NR) f32 log10 likelihoods, hap-major, with NEG_INF for
+    haplotypes of length 0. The math of gatk_tpu's _pairhmm_scan_call
+    (pairhmm_tpu.py:1059-1134), the oracle of its _pairhmm_matrix_call; an N on
+    either side scores as a match (:228)."""
+    return _forward(*(t[:, None, :] for t in (pools.rbase, pools.rq, pools.iq, pools.dq,
+                                              pools.gcp)),
+                    pools.rlen[None, :], pools.e[:, :, None], pools.hlen[:, None], pools.rp,
+                    pools.hmax, False)
+
+
+class _Counted:
+    """`launches` and `pairs` count kernel launches and the pairs they scored;
     the plain version is not counted."""
 
     def __init__(self):
@@ -324,21 +352,70 @@ class _PairEntry:
             self.launches = 0
             self.pairs = 0
 
+    def _count(self, pairs):
+        with self._lock:
+            self.launches += 1
+            self.pairs += pairs
+
+
+class _PairEntry(_Counted):
+    """`pairhmm_pairs(pools, ri, hi)`: CUDA tensors launch the Hopper kernel
+    (ops/_kernels.pairhmm_fwd), CPU tensors run pairhmm_pairs_reference, both
+    with this entry's haplotype-N rule."""
+
+    def __init__(self, hap_n_mismatch=False):
+        super().__init__()
+        self.hap_n_mismatch = hap_n_mismatch
+
     def __call__(self, pools: Pools, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
         if pools.rbase.device.type == "cpu":
-            return pairhmm_pairs_reference(pools, ri, hi)
+            return pairhmm_pairs_reference(pools, ri, hi, self.hap_n_mismatch)
         if ri.numel() == 0:
             return torch.empty(0, dtype=torch.float32, device=pools.rbase.device)
         from . import _kernels
 
-        out = _kernels.pairhmm_fwd(pools, ri, hi)
-        with self._lock:
-            self.launches += 1
-            self.pairs += ri.numel()
+        out = _kernels.pairhmm_fwd(pools, ri, hi, hap_n_mismatch=self.hap_n_mismatch)
+        self._count(ri.numel())
         return out
 
 
+class _MatrixEntry(_Counted):
+    """`pairhmm_matrix(pools)` -> (NH, NR): CUDA tensors launch the cartesian
+    Hopper kernel (ops/_kernels.pairhmm_matrix), CPU tensors run
+    pairhmm_matrix_reference. `pairs` counts NR x NH per launch."""
+
+    def __call__(self, pools: Pools) -> torch.Tensor:
+        if pools.rbase.device.type == "cpu":
+            return pairhmm_matrix_reference(pools)
+        from . import _kernels
+
+        out = _kernels.pairhmm_matrix(pools)
+        self._count(out.numel())
+        return out
+
+
+# the pair kernel with the host's N rule: the pool flush and compute_log10_likelihoods
 pairhmm_pairs = _PairEntry()
+# the same kernel's instance that scores a haplotype N as a mismatch
+pairhmm_pairs_hap_n_mismatch = _PairEntry(hap_n_mismatch=True)
+# the cartesian kernel: start_likelihood_matrix (-ERC GVCF, oversize regions)
+pairhmm_matrix = _MatrixEntry()
+
+
+# The port's entry point for each of gatk_tpu's pair kernels (TPU kernels 1 and
+# 3-7), by the rule the kernel applies to an N in the haplotype. They differ
+# from one another otherwise only in TPU scheduling (lane widths, v4's
+# interleaved chains, v5's groups of 8 diagonals and its (rp + hmax) % 8 == 0
+# rule, v7's loop-carried state), which does not carry over to the GPU.
+PAIR_VARIANTS = {
+    "_pairhmm_call": pairhmm_pairs,  # v1: an N on either side matches (pairhmm_tpu.py:113)
+    # a haplotype N mismatches unless the read base is N (pne = peq only there)
+    "_pairhmm_call_v2": pairhmm_pairs_hap_n_mismatch,  # pairhmm_tpu.py:372-375
+    "_pairhmm_call_v4": pairhmm_pairs_hap_n_mismatch,  # :483-486
+    "_pairhmm_call_v5": pairhmm_pairs_hap_n_mismatch,  # :677-680
+    "_pairhmm_call_v6": pairhmm_pairs_hap_n_mismatch,  # :792-795; calling keeps the host rule
+    "_pairhmm_call_v7": pairhmm_pairs_hap_n_mismatch,  # :895-898
+}
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +426,11 @@ _DEFAULT_DEVICE = torch.device("cuda")
 
 
 def set_default_device(device) -> None:
-    """Device for callers that pass none (e.g. hc_engine.compute_pairhmm_likelihoods
-    on the -ERC GVCF route). hc_tool sets it from --device."""
+    """Device for callers that pass none (hc_engine.compute_pairhmm_likelihoods on
+    the -ERC GVCF route, Mutect2Engine's PoolBatcher). hc_tool and mutect_tool set
+    it from --device; raises when that is CUDA and there is no card."""
     global _DEFAULT_DEVICE
-    _DEFAULT_DEVICE = torch.device(device)
+    _DEFAULT_DEVICE = resolve_device(device)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -360,8 +438,8 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device(device) if device is not None else _DEFAULT_DEVICE
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' (HaplotypeCaller "
-            "--device cpu) to run the plain PyTorch PairHMM on the host")
+            "no CUDA device is available; pass device='cpu' (--device cpu on the "
+            "command line) to run the plain PyTorch PairHMM on the host")
     return dev
 
 
@@ -397,9 +475,9 @@ class _HostCopy:
 
 class _CartParts:
     """Lazy handle over one region's cartesian launch (duck-types an array for
-    finish_likelihood_matrix): its hap-major (nh * nr,) result on its way to
-    the host. gatk_tpu tiles the product over fixed compile shapes; one launch
-    over the real pairs needs no tiles."""
+    finish_likelihood_matrix): its (nh, nr) result on its way to the host.
+    gatk_tpu tiles the product over fixed compile shapes; one launch over the
+    real reads and haplotypes needs no tiles."""
 
     def __init__(self, res: _HostCopy, nh, nr):
         self.res = res
@@ -413,9 +491,9 @@ class _CartParts:
 
 def start_likelihood_matrix(reads, haps, device=None):
     """Pack and launch all reads x all haplotypes without blocking; returns an
-    opaque handle for finish_likelihood_matrix. One launch over the real pairs:
-    the reads and haplotypes go to the device once and the kernel gathers each
-    pair from them."""
+    opaque handle for finish_likelihood_matrix. One launch of the cartesian
+    kernel: the reads and haplotypes go to the device once, and each read's
+    tables are built once for all the haplotypes."""
     dev = resolve_device(device)
     max_r = max(len(r["bases"]) for r in reads)
     max_h = max(len(h) for h in haps)
@@ -423,11 +501,9 @@ def start_likelihood_matrix(reads, haps, device=None):
     hmax = max(512, _bucket(max_h, HMAX_BUCKETS))
     packed, rp = pack_reads(reads, rp=rp, nr=len(reads))
     e, hlen, hmax = pack_haps(haps, rp, hmax=hmax, nh=len(haps))
-    ri, hi = cartesian_pairs(len(reads), len(haps))
     with _on(dev):
         pools = make_pools(packed, packed["rlen"], e, hlen, dev)
-        out = pairhmm_pairs(pools, torch.from_numpy(ri).to(dev), torch.from_numpy(hi).to(dev))
-        return _CartParts(_HostCopy(out), len(haps), len(reads))
+        return _CartParts(_HostCopy(pairhmm_matrix(pools)), len(haps), len(reads))
 
 
 def _apply_floor(mat, reads, haps, floor):

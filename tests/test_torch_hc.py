@@ -24,6 +24,7 @@ from gatk_tpu_torch.io import vcf as port_vcf
 from gatk_tpu_torch.parallel import scheduler as port_scheduler
 from gatk_tpu_torch.utils import synthetic
 from gatk_tpu_torch.utils.errors import UserError
+from tests.test_torch_pairhmm import one_torch_thread  # noqa: F401
 
 
 def _dryrun_reads(read_cls):

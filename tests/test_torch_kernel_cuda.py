@@ -1,6 +1,7 @@
-"""The hand-written PairHMM kernel (gatk_tpu_torch/csrc/pairhmm_fwd.cu) on the card.
+"""The hand-written PairHMM kernels (gatk_tpu_torch/csrc/pairhmm_fwd.cu and
+csrc/pairhmm_matrix.cu) on the card.
 
-Every test here needs a CUDA device: the kernel has no CPU mode, so without a
+Every test here needs a CUDA device: the kernels have no CPU mode, so without a
 card they skip. The file imports neither jax nor gatk_tpu, so it also runs where
 only the port is installed:
 
@@ -20,7 +21,7 @@ TOL = 1e-4  # max |log10 kernel - log10 plain| above the floor
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -108,3 +109,98 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         _kernels.pairhmm_fwd(pools, ri.long(), hi.long())
     with pytest.raises(ValueError, match="contiguous"):
         _kernels.pairhmm_fwd(pools._replace(rq=pools.rq.t().contiguous().t()), ri, hi)
+
+
+def _assert_close(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and not got.isnan().any()
+    ok = want > pairhmm.MIN_ACCEPTED_LOG10
+    assert ok.any() and torch.equal(ok, got > pairhmm.MIN_ACCEPTED_LOG10)
+    assert (got[ok] - want[ok]).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rp,hmax,read_lens,hap_lens", [
+    (160, 512, range(1, 159, 5), (1, 7, 64, 200, 511, 512, 0)),
+    # reads over two 160-row stripes, haplotypes up to the largest bucket
+    (320, 2048, (1, 150, 159, 160, 161, 240, 318), (0, 1, 300, 1023, 2047, 2048)),
+    # more haplotypes than the pool holds, as PoolBatcher sends to this route
+    (160, 512, (40, 100, 151, 158), tuple(range(100, 500, 5)) * 14),
+    # past the last bucket: _bucket rounds hmax to multiples of 2048
+    (320, 4096, (151, 300), (2500, 4096)),
+])
+def test_matrix_kernel_matches_plain(cuda_device, rp, hmax, read_lens, hap_lens):
+    """Kernel 2 against pairhmm_matrix_reference on every read x haplotype,
+    length-0 haplotypes (NEG_INF) included."""
+    rng = np.random.default_rng(rp + hmax + len(hap_lens))
+    lens = [max(h, 1) for h in hap_lens]
+    reads, haps = _batch(rng, read_lens, lens)
+    haps = [h if n else b"" for h, n in zip(haps, hap_lens)]
+    packed, rp = pairhmm.pack_reads(reads, rp=rp, nr=len(reads))
+    e, hlen, _ = pairhmm.pack_haps(haps, rp, hmax=hmax, nh=len(haps))
+    pools = pairhmm.make_pools(packed, packed["rlen"], e, hlen, cuda_device)
+    before = (pairhmm.pairhmm_matrix.launches, pairhmm.pairhmm_matrix.pairs)
+    got = pairhmm.pairhmm_matrix(pools)
+    assert (pairhmm.pairhmm_matrix.launches, pairhmm.pairhmm_matrix.pairs) == (
+        before[0] + 1, before[1] + len(reads) * len(haps))
+    want = pairhmm.pairhmm_matrix_reference(pools)
+    _assert_close(got, want)
+    empty = torch.tensor([n == 0 for n in hap_lens], device=cuda_device)
+    assert (got[empty] == pairhmm.NEG_INF).all()
+
+
+@pytest.mark.parametrize("rp,hmax", [(160, 512), (320, 2048)])
+def test_hap_n_mismatch_instance_matches_plain(cuda_device, rp, hmax):
+    """The pair kernel's hap-N-mismatch instance against its plain version, and
+    unlike the default instance wherever a haplotype N meets a read base."""
+    rng = np.random.default_rng(rp)
+    read_lens = (30, 80, 151, 158) if rp == 160 else (151, 200, 318)
+    reads, haps = _batch(rng, read_lens, (100, 300, hmax))
+    # Ns of the haplotypes' own, where the reads have a base
+    haps = [np.where(rng.random(len(h)) < 0.02, ord("N"), np.frombuffer(h, np.uint8))
+            .astype(np.uint8).tobytes() for h in haps]
+    pools, ri, hi = _pools(reads, haps, rp, hmax, cuda_device)
+    got = pairhmm.pairhmm_pairs_hap_n_mismatch(pools, ri, hi)
+    _assert_close(got, pairhmm.pairhmm_pairs_reference(pools, ri, hi, hap_n_mismatch=True))
+    default = pairhmm.pairhmm_pairs(pools, ri, hi)
+    ok = got > pairhmm.MIN_ACCEPTED_LOG10
+    assert ((got - default)[ok].abs() > 1e-3).any()
+
+
+def test_matrix_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from gatk_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(3)
+    pools, _, _ = _pools(*_batch(rng, (20, 30), (40, 50)), 160, 512, cuda_device)
+    with pytest.raises(ValueError, match="uint8"):
+        _kernels.pairhmm_matrix(pools._replace(rq=pools.rq.int()))
+    with pytest.raises(ValueError, match="int32"):
+        _kernels.pairhmm_matrix(pools._replace(hlen=pools.hlen.long()))
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.pairhmm_matrix(pools._replace(e=pools.e.t().contiguous().t()))
+    with pytest.raises(ValueError, match="all operands must be on"):
+        _kernels.pairhmm_matrix(pools._replace(rlen=pools.rlen.cpu()))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        _kernels.pairhmm_matrix(pairhmm.Pools(*(t.cpu() for t in pools)))
+
+
+def test_cartesian_route_launches_the_matrix_kernel_and_raises_on_failure(cuda_device,
+                                                                          monkeypatch):
+    """start_likelihood_matrix on the card is one pairhmm_matrix launch; when the
+    kernel cannot be built or launched it raises instead of falling back."""
+    from gatk_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(4)
+    reads, haps = _batch(rng, (60, 120, 151), (200, 300))
+    before = (pairhmm.pairhmm_matrix.launches, pairhmm.pairhmm_pairs.launches)
+    got = pairhmm.compute_likelihood_matrix(reads, haps, device=cuda_device)
+    assert (pairhmm.pairhmm_matrix.launches, pairhmm.pairhmm_pairs.launches) == (
+        before[0] + 1, before[1])
+    want = pairhmm.compute_likelihood_matrix(reads, haps, device="cpu")
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+    def broken(name):
+        raise RuntimeError("nvcc failed for csrc/pairhmm_matrix.cu")
+
+    monkeypatch.setattr(_kernels, "library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        pairhmm.compute_likelihood_matrix(reads, haps, device=cuda_device)

@@ -18,6 +18,18 @@ from tests.test_pairhmm_tpu import _host_matrix, _random_region
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread. The suite runs test files in
+    parallel worker processes, and a full-width torch thread pool in each of
+    them (beside XLA's) oversubscribes the cores many times over; the port's
+    tests on the CPU use small tensors and lose little on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _merged(packed, e, hlen):
     return dict(packed, e=e, hlen=hlen)
 

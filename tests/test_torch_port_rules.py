@@ -55,7 +55,7 @@ def test_port_imports_neither_jax_nor_gatk_tpu():
 
 
 def test_every_module_named_in_a_header_is_copied():
-    assert len(_copied_files()) == 53
+    assert len(_copied_files()) == 64
 
 
 def _is_import(node):
@@ -70,6 +70,34 @@ def _import_lines(src):
     return lines
 
 
+# the lines a copy may change beyond its imports: the PairHMM module's name at
+# its uses, and the Mutect2 --device flag
+RENAMED = {"calling/hc_engine.py": (18, 332, 407, 518, 549),
+           "mutect/engine.py": (23, 158, 197, 232)}
+MUTECT2_DEVICE_FLAG = [
+    '    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",\n',
+    '                   help="where the PairHMM runs: the CUDA kernel, or its plain "\n',
+    '                        "PyTorch version on the host")\n',
+]
+
+
+def _expected_changes(copy, original):
+    """The source as its copy must read, apart from import lines."""
+    lines = original.splitlines(keepends=True)
+    for n in RENAMED.get(os.path.relpath(copy, "gatk_tpu_torch"), ()):
+        assert "pairhmm_tpu" in lines[n - 1]
+        lines[n - 1] = lines[n - 1].replace("pairhmm_tpu", "pairhmm")
+    if copy.endswith("tools/mutect_tool.py"):
+        # mutect_tool.py:38 parses Mutect2's flags: --device is added before it
+        # and applied after it; the import goes after :9
+        assert lines[37] == "    args = p.parse_args(argv)\n"
+        lines[38:38] = ["    pairhmm.set_default_device(args.device)\n"]
+        lines[37:37] = MUTECT2_DEVICE_FLAG
+        assert lines[8].startswith("from ..mutect.engine import")
+        lines[9:9] = ["from ..ops import pairhmm\n"]
+    return "".join(lines)
+
+
 @pytest.mark.parametrize("copy", _copied_files())
 def test_copied_module_is_verbatim(copy):
     with open(os.path.join(ROOT, copy)) as fh:
@@ -79,13 +107,7 @@ def test_copied_module_is_verbatim(copy):
     assert source == "gatk_tpu/" + os.path.relpath(copy, "gatk_tpu_torch")
     with open(os.path.join(ROOT, source)) as fh:
         original = fh.read()
-    if copy.endswith("calling/hc_engine.py"):
-        # the PairHMM module's name at its five uses (hc_engine.py:18,332,407,518,549)
-        lines = original.splitlines(keepends=True)
-        for n in (18, 332, 407, 518, 549):
-            assert "pairhmm_tpu" in lines[n - 1]
-            lines[n - 1] = lines[n - 1].replace("pairhmm_tpu", "pairhmm")
-        original = "".join(lines)
+    original = _expected_changes(copy, original)
     a, b = original.splitlines(), body.splitlines()
     assert len(a) == len(b)
     skip = _import_lines(original) | _import_lines(body)
@@ -111,6 +133,23 @@ def test_pairhmm_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
         pairhmm.compute_likelihood_matrix(reads, [b"ACGTACGT"])
     pairhmm.set_default_device("cpu")
     assert pairhmm.compute_likelihood_matrix(reads, [b"ACGTACGT"]).shape == (1, 1)
+
+
+def test_mutect2_on_cuda_raises_without_a_card(monkeypatch, tmp_path):
+    """Mutect2 --device cuda (the default) refuses to start without a card, through
+    the CLI, before it reads its inputs; --device cpu runs."""
+    from gatk_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pairhmm, "_DEFAULT_DEVICE", torch.device("cuda"))
+    argv = ["Mutect2", "-I", str(tmp_path / "missing.bam"), "-R", str(tmp_path / "missing.fa"),
+            "-O", str(tmp_path / "out.vcf")]
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv + extra)
+    assert pairhmm._DEFAULT_DEVICE == torch.device("cuda")
+    assert cli.main(argv + ["--device", "cpu"]) == 2  # gets as far as the missing files
+    assert not (tmp_path / "out.vcf").exists()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
