@@ -7,9 +7,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   device   the card, its power limit, the kernel builds, the native host libraries
   kernel   the PairHMM pair kernel on bench.py's workload (64 reads x 151 bp, 16
            haplotypes x 400 bp, 32,768 pairs) and on ragged batches with N
-           bases (rp 160 and 320), against its plain PyTorch version and the
-           host f64 reference; timed with CUDA events beside its bound and the
-           scalar C++ baseline
+           bases (rp 160 and 320; reads at every lane-group edge), against its
+           plain PyTorch version and the host f64 reference; timed with CUDA
+           events beside its bound and the scalar C++ baseline
   variants the port's entry point for each of gatk_tpu's pair kernels
            (ops/pairhmm.PAIR_VARIANTS, the counterpart of
            tools_dev/bench_kernels.py) on the bench workload and on a ragged
@@ -30,14 +30,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
   main_launch  the largest pair-kernel launch of the hc run, held against the
            plain version and timed at that shape
   matrix   the cartesian kernel on the bench workload's 1,024 unique pairs, a
-           ragged rp 320 / hmax 2048 region with N, a region of 1,100
+           ragged rp 320 / hmax 2048 region with N, a region of reads at every
+           lane-group edge, a region of 1,100
            haplotypes and the largest launch of the gvcf run, against its plain
            version; timed beside its bound and beside the pair kernel on the
            same product expanded into pairs
 Each of the runs hc, gvcf, mutect2 and variants starts with every kernel's
-launch count at 0 and reads the counts at its end. Then the card's name and
-power limit as nvidia-smi prints them, one JSON line listing every kernel of
-the port, and the result line.
+launch count at 0 and reads the counts at its end. hc, gvcf and mutect2 also
+profile a second run (device time of the sweep kernels, of the plan kernels
+their launchers run first, and of all device work) and report every launch's
+useful cells, bound, group-width histogram and slot use (launch_stats), and
+the sum of the bounds. Then the card's name and power limit as nvidia-smi
+prints them, one JSON line listing every kernel of the port, and the result
+line.
 Needs a CUDA device and the repository's sources; imports neither jax nor gatk_tpu.
 """
 import contextlib
@@ -133,7 +138,8 @@ def phase_device():
     t0 = time.perf_counter()
     _kernels.library("pairhmm_fwd")  # builds every kernel, one nvcc each, in parallel
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if any(w in ln for w in ("registers", "spill", "Function properties"))]
              for name, log in _kernels.BUILD_INFO["log"].items()}
     native = {m.__name__.split(".", 1)[1]: m._load_native() is not None
               for m in (bgzf, bam, read_prep, rtgraph, pileup, pdhmm, smith_waterman)}
@@ -202,10 +208,14 @@ def _ragged_workload(read_lens, hap_lens, seed, hap_n=0.0):
 
 # (read lengths, haplotype lengths, rp, hmax): every length of the pool's
 # buckets, then long reads over two 160-row stripes with haplotypes up to the
-# largest bucket, as oversize regions reach the cartesian route
+# largest bucket, as oversize regions reach the cartesian route, then every
+# edge of the lane groups (4, 8, 16, 32 lanes of 5 rows) with haplotypes of 1 to
+# 512 bases
 RAGGED = (
     (range(1, 159), (1, 2, 3, 31, 32, 33, 100, 158, 255, 256, 400, 511, 512), 160, 512),
     ((150, 159, 160, 161, 200, 255, 317, 318), (1, 160, 400, 1000, 1500, 2047, 2048), 320, 2048),
+    ((1, 19, 20, 21, 39, 40, 41, 79, 80, 81, 159, 160, 161), (1, 2, 7, 64, 113, 200, 333, 511, 512),
+     320, 512),
 )
 
 
@@ -393,18 +403,20 @@ def phase_variants(dev):
 
 
 @contextlib.contextmanager
-def keeping_largest_launch(kernel):
-    """Keeps the inputs of the largest launch of `kernel` (a wrapper of
-    ops/_kernels: "pairhmm_fwd" or "pairhmm_matrix") made inside the block, so
-    that the kernel can be held against its plain version, and timed, at a shape
-    the main path gave it."""
+def keeping_launches(kernel):
+    """Keeps the inputs of every launch of `kernel` (a wrapper of ops/_kernels:
+    "pairhmm_fwd" or "pairhmm_matrix") made inside the block: kept["all"] in
+    launch order, kept["args"] the largest, so that the kernel can be held
+    against its plain version, and timed, at a shape the main path gave it,
+    and every launch's cells and lane-slots counted (launch_stats)."""
     from gatk_tpu_torch.ops import _kernels
 
     launch = getattr(_kernels, kernel)
-    kept = {"n": 0}
+    kept = {"n": 0, "all": []}
 
     def keep(pools, *args, **kwargs):
         n = args[0].numel() if args else pools.rbase.shape[1] * pools.e.shape[1]
+        kept["all"].append((pools, *args))
         if n > kept["n"]:
             kept.update(n=n, args=(pools, *args))
         return launch(pools, *args, **kwargs)
@@ -414,6 +426,70 @@ def keeping_largest_launch(kernel):
         yield kept
     finally:
         setattr(_kernels, kernel, launch)
+
+
+def _lanes(rows):
+    """(lanes a read's group sweeps with, its 160-row stripes): one stripe of
+    ceil(rows / 5) lanes up to 160 rows, 32 lanes a stripe beyond."""
+    stripes = (rows + 159) // 160
+    return torch.where(rows > 160, torch.full_like(rows, 32), (rows + 4) // 5), stripes
+
+
+def launch_stats(args):
+    """One launch's work, counted on the host from its inputs and from the plan
+    (ops/_kernels.plan_groups, the plain version of the one the launcher builds
+    on the card): pairs, useful cells (rlen x hlen summed), the bound, the
+    group-width histogram, and lane-slots (one lane computing one row-cell:
+    160 a warp-step) of this design and of one warp per pair or read (the
+    design of commit 0487e99); slot use = useful cells / lane-slots."""
+    from gatk_tpu_torch.ops import _kernels
+
+    pools = args[0]
+    rlen, hlen = pools.rlen.long().cpu(), pools.hlen.long().cpu()
+    nr, nh = len(rlen), len(hlen)
+    if len(args) > 1:  # the pair kernel: one item per pair
+        ri, hi = (t.long().cpu() for t in args[1:3])
+        rows, hl = rlen[ri], hlen[hi]
+        perm, seg = _kernels.plan_groups(rows, hl, pools.hmax)
+        cells = int((rows * hl).sum())
+        lanes, stripes = _lanes(rows)
+        item_steps = torch.where((rows > 0) & (hl > 0), stripes * (hl + lanes - 1), 0)
+        one_warp_slots = 160 * int(item_steps.sum())
+        n, out_bytes, in_bytes = len(ri), 4 * len(ri), _pool_bytes(pools) + 8 * len(ri)
+    else:  # the matrix kernel: one item per read, every haplotype
+        rows = rlen
+        perm, seg = _kernels.plan_groups(rows)
+        valid = hlen[hlen > 0]
+        sum_h, n_h = int(valid.sum()), len(valid)
+        cells = int(rows.sum()) * int(hlen.sum())
+        lanes, stripes = _lanes(rows)
+        one_warp_slots = 160 * int((torch.where(rows > 0, stripes, 0)
+                               * (sum_h + n_h * (lanes - 1))).sum())
+        n, out_bytes, in_bytes = nr * nh, 4 * nr * nh, _pool_bytes(pools)
+    slots = 0
+    widths = {}
+    for c, width in enumerate(_kernels.GROUP_WIDTHS):
+        idx = perm[seg[c] : seg[c + 1]].long()
+        widths[str(width)] = len(idx)
+        if not len(idx):
+            continue
+        per_warp = 32 // width
+        pad = (-len(idx)) % per_warp
+        la, st = (torch.cat([t[idx], t.new_zeros(pad)]).reshape(-1, per_warp) for t in _lanes(rows))
+        if len(args) > 1:  # a warp runs until its longest group is done
+            h = torch.cat([hl[idx], hl.new_zeros(pad)]).reshape(-1, per_warp)
+            slots += 160 * int(torch.where(h > 0, st * (h + la - 1), 0).max(1).values.sum())
+        else:  # every haplotype, for the warp's most lanes
+            slots += 160 * int((st.max(1).values * (sum_h + n_h * (la.max(1).values - 1))).sum())
+    return dict(pairs=n, widths=widths, lane_slots=slots, slot_use=cells / max(slots, 1),
+                one_warp_slot_use=cells / max(one_warp_slots, 1),
+                **_bound(cells, in_bytes, out_bytes))
+
+
+def _launches_summary(kept):
+    """Every launch of a path: its stats, and the sum of their bounds."""
+    stats = [launch_stats(a) for a in kept["all"]]
+    return dict(launch_stats=stats, sum_bound_ms=sum(st["bound_ms"] for st in stats))
 
 
 @contextlib.contextmanager
@@ -511,10 +587,15 @@ def _run_tool(argv, counting):
     return wall, counts, STAGES.report()
 
 
-def _device_profile(argv, kernel_names):
-    """The same run again under torch.profiler: device time of the given
-    kernels and of all device work (copies included) beside the run's wall time.
-    The profiler slows the host, so this wall is not the one reported above."""
+SWEEPS = ["pairhmm_fwd_kernel", "pairhmm_matrix_kernel"]
+PLAN = ["plan_count", "plan_scan", "plan_scatter"]  # csrc/pairhmm_sweep.cuh
+
+
+def _device_profile(argv):
+    """The same run again under torch.profiler: device time of the sweep
+    kernels, of the plan kernels their launchers run first, and of all device
+    work (copies included) beside the run's wall time. The profiler slows the
+    host, so this wall is not the one reported above."""
     from torch.profiler import ProfilerActivity, profile
 
     from gatk_tpu_torch import cli
@@ -528,12 +609,15 @@ def _device_profile(argv, kernel_names):
     stats = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in stats)
     kernel_us = sum(e.self_device_time_total for e in stats
-                    if any(k in e.key for k in kernel_names))
+                    if any(k in e.key for k in SWEEPS))
+    plan_us = sum(e.self_device_time_total for e in stats if any(k in e.key for k in PLAN))
     if busy_us == 0:  # the profiler saw no device activity: say so, invent nothing
         return dict(profiled_wall_s=wall, device_kernel_ms="not measured",
-                    device_busy_ms="not measured", device_idle_share="not measured")
+                    device_plan_ms="not measured", device_busy_ms="not measured",
+                    device_idle_share="not measured")
     return dict(profiled_wall_s=wall, device_kernel_ms=kernel_us / 1e3,
-                device_busy_ms=busy_us / 1e3, device_idle_share=1 - busy_us / 1e6 / wall)
+                device_plan_ms=plan_us / 1e3, device_busy_ms=busy_us / 1e3,
+                device_idle_share=1 - busy_us / 1e6 / wall)
 
 
 def _indels_called(planted, recs):
@@ -550,7 +634,7 @@ def phase_hc(sample, tmp):
 
     out = os.path.join(tmp, "out.vcf")
     argv = ["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"], "-O", out]
-    with keeping_largest_launch("pairhmm_fwd") as kept:
+    with keeping_launches("pairhmm_fwd") as kept:
         wall, counts, stages = _run_tool(argv, counting_genotyped_pairs(hc_engine))
     check(counts["pairhmm_fwd"]["launches"] > 0,
           "the PairHMM kernel was never launched by HaplotypeCaller")
@@ -562,8 +646,7 @@ def phase_hc(sample, tmp):
                   if not (v.pos in by_pos and by_pos[v.pos]["ref"] == v.ref
                           and by_pos[v.pos]["alts"] == [v.alt] and by_pos[v.pos]["gt"] == "0/1")]
     indel_called = _indels_called(indels, recs)
-    profiled = _device_profile(argv[:-1] + [out + ".2"], ["pairhmm_fwd_kernel",
-                                                          "pairhmm_matrix_kernel"])
+    profiled = _device_profile(argv[:-1] + [out + ".2"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second HaplotypeCaller run wrote a different VCF")
     res = dict(phase="hc", reads=sample["n_reads"], records=len(recs), wall_s=wall,
@@ -571,7 +654,7 @@ def phase_hc(sample, tmp):
                snvs_planted=len(snvs), indels_called=len(indel_called),
                indels_planted=len(indels), launches=counts["pairhmm_fwd"]["launches"],
                pairs=sum(c["pairs"] for c in counts.values()), counts=counts, stages=stages,
-               **profiled)
+               **profiled, **_launches_summary(kept))
     emit(res)
     check(not missed_snv, f"planted SNVs not called as 0/1: {missed_snv}")
     check(len(indel_called) >= len(indels) - 1,
@@ -587,10 +670,10 @@ def phase_gvcf(sample, tmp):
     start = max(0, first - 200)
     end = start + 2000  # 2 kb holding the first planted variants
     interval = f"{sample['contig']}:{start + 1}-{end}"
-    with keeping_largest_launch("pairhmm_matrix") as kept:
-        wall, counts, stages = _run_tool(
-            ["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"], "-O", out,
-             "-ERC", "GVCF", "-L", interval], counting_genotyped_pairs(hc_engine))
+    argv = ["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"], "-ERC", "GVCF",
+            "-L", interval, "-O", out]
+    with keeping_launches("pairhmm_matrix") as kept:
+        wall, counts, stages = _run_tool(argv, counting_genotyped_pairs(hc_engine))
     check(counts["pairhmm_matrix"]["launches"] > 0,
           "the cartesian kernel was never launched by HaplotypeCaller -ERC GVCF")
     recs = _records(out)
@@ -598,10 +681,14 @@ def phase_gvcf(sample, tmp):
     found = [v.pos for v in planted
              if any(abs(r["pos"] - v.pos) <= 20 and "<NON_REF>" in r["alts"] and len(r["alts"]) > 1
                     for r in recs)]
+    profiled = _device_profile(argv[:-1] + [out + ".2"])
+    with open(out, "rb") as a, open(out + ".2", "rb") as b:
+        check(a.read() == b.read(), "a second -ERC GVCF run wrote a different GVCF")
     res = dict(phase="gvcf", interval=interval, records=len(recs), wall_s=wall,
                variants_planted=len(planted), variants_called=len(found),
                launches=counts["pairhmm_matrix"]["launches"],
-               pairs=sum(c["pairs"] for c in counts.values()), counts=counts, stages=stages)
+               pairs=sum(c["pairs"] for c in counts.values()), counts=counts, stages=stages,
+               **profiled, **_launches_summary(kept))
     emit(res)
     check(len(found) == len(planted) and planted, f"GVCF missed planted variants: "
                                                   f"{sorted(set(v.pos for v in planted) - set(found))}")
@@ -618,7 +705,7 @@ def phase_mutect2(tmp):
     write_s = time.perf_counter() - t0
     out = os.path.join(tmp, "tumor.vcf")
     argv = ["Mutect2", "-I", sample["bam"], "-R", sample["fasta"], "-O", out]
-    with keeping_largest_launch("pairhmm_fwd") as kept:
+    with keeping_launches("pairhmm_fwd") as kept:
         wall, counts, stages = _run_tool(argv, counting_m2_regions(m2_engine))
     check(counts["pairhmm_fwd"]["launches"] > 0, "the PairHMM kernel was never launched by Mutect2")
     check(os.path.exists(out + ".stats"), "Mutect2 wrote no .stats file")
@@ -640,8 +727,7 @@ def phase_mutect2(tmp):
     passing = {(r["pos"], r["ref"], r["alts"][0]) for r in frecs if r["filter"] == "PASS"}
     somatic_pass = sum((v.pos, v.ref, v.alt) in passing for v in sample["somatic"])
 
-    profiled = _device_profile(argv[:-1] + [out + ".2"], ["pairhmm_fwd_kernel",
-                                                          "pairhmm_matrix_kernel"])
+    profiled = _device_profile(argv[:-1] + [out + ".2"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second Mutect2 run wrote a different VCF")
     largest = None
@@ -659,7 +745,7 @@ def phase_mutect2(tmp):
                filter_s=filter_s, passing=len(passing), somatic_passing=somatic_pass,
                launches=counts["pairhmm_fwd"]["launches"],
                pairs=sum(c["pairs"] for c in counts.values()), counts=counts,
-               stages=stages, largest_launch=largest, **profiled)
+               stages=stages, largest_launch=largest, **profiled, **_launches_summary(kept))
     emit(res)
     check(not missed_snv, f"planted somatic SNVs not in the unfiltered VCF: {missed_snv}")
     check(len(indel_called) >= len(indels) - 1,
@@ -717,11 +803,12 @@ def phase_matrix(dev, kept):
     a, b = pairhmm.cartesian_pairs(len(reads), len(haps))
     pools, _, _ = _device_pools(reads, haps, a, b, dev, rp=160, hmax=512)
     cases.append(_matrix_case(pools, "bench 64 x 16"))
-    read_lens, hap_lens, rp, hmax = RAGGED[1]
-    rr, hh = _ragged_workload(read_lens, hap_lens, seed=2)
-    a, b = pairhmm.cartesian_pairs(len(rr), len(hh))
-    pools, _, _ = _device_pools(rr, hh, a, b, dev, rp=rp, hmax=hmax)
-    cases.append(_matrix_case(pools, f"ragged/N rp={rp} hmax={hmax}", timed=False))
+    for seed, (read_lens, hap_lens, rp, hmax) in ((2, RAGGED[1]), (5, RAGGED[2])):
+        rr, hh = _ragged_workload(read_lens, hap_lens, seed=seed)
+        a, b = pairhmm.cartesian_pairs(len(rr), len(hh))
+        pools, _, _ = _device_pools(rr, hh, a, b, dev, rp=rp, hmax=hmax)
+        cases.append(_matrix_case(pools, f"ragged/N rp={rp} hmax={hmax} reads "
+                                         f"{min(read_lens)}-{max(read_lens)}", timed=False))
     # more haplotypes than the pool holds (PoolBatcher sends these here)
     rng = np.random.default_rng(7)
     rr, hh = _ragged_workload(rng.integers(100, 152, 24), rng.integers(150, 451, 1100), seed=4)

@@ -7,6 +7,15 @@ sources and the flags, so an edited kernel is rebuilt and an unchanged one is
 reused. All sources build in parallel, one nvcc each. The libraries are loaded
 with ctypes: pointers and the stream go in as c_void_p, and each launcher
 returns cudaGetLastError(), which the wrapper turns into an exception.
+
+Both kernels sweep a read with a group of 4, 8, 16 or 32 lanes of a warp,
+chosen by its length (csrc/pairhmm_sweep.cuh). Before the sweep each launcher
+orders the pairs (or the reads) so that like ones share a warp, by a counting
+sort on the card in three small kernels whose plain version is `plan_groups`;
+the wrappers allocate its scratch, and the sweep writes each result in the
+caller's order. The kernels read each haplotype as one row of bytes: the pools'
+e (He, NH) is stored haplotype-major (ops/pairhmm.make_pools), and the wrappers
+pass it as it is.
 """
 from __future__ import annotations
 
@@ -27,6 +36,9 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "gatk_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 E_OFF = 16  # must match csrc/pairhmm_sweep.cuh (kEOff) and ops/pairhmm.E_OFF
+ROWS_PER_LANE = 5  # csrc/pairhmm_sweep.cuh: kRows
+GROUP_WIDTHS = (4, 8, 16, 32)  # lanes of a group, by class (4 << c)
+MAX_KEY_LEN = 4095  # csrc/pairhmm_sweep.cuh: kMaxKeyLen
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -93,13 +105,58 @@ def library(name: str) -> ctypes.CDLL:
 def _bind_pairhmm(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.pairhmm_fwd.restype = i
-    lib.pairhmm_fwd.argtypes = [vp] * 11 + [i] * 6 + [vp]
+    lib.pairhmm_fwd.argtypes = [vp] * 12 + [i] * 6 + [vp]
+    lib.pairhmm_plan.restype = i
+    lib.pairhmm_plan.argtypes = [vp] * 5 + [i] * 4 + [vp]
 
 
 def _bind_pairhmm_matrix(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.pairhmm_matrix.restype = i
-    lib.pairhmm_matrix.argtypes = [vp] * 9 + [i] * 4 + [vp]
+    lib.pairhmm_matrix.argtypes = [vp] * 10 + [i] * 4 + [vp]
+
+
+def plan_groups(rows: torch.Tensor, hlen: torch.Tensor | None = None, hmax: int = 0):
+    """The kernels' plan over n items (pairs, or the reads of a region), the
+    plain version of the counting sort in csrc/pairhmm_sweep.cuh (plan_count,
+    plan_scan, plan_scatter) that the launchers run on the card. rows (n,)
+    read lengths, hlen (n,) haplotype lengths of pairs (None for reads), hmax
+    an upper bound of hlen. Returns (perm, seg): perm (int64) orders the items
+    by group class, then hlen, then lanes used (stably; the kernels' order
+    differs only among items with equal keys); class c holds
+    perm[seg[c] : seg[c + 1]] (seg int32, 5 entries)."""
+    rows = rows.long()
+    lanes = ((rows + ROWS_PER_LANE - 1) // ROWS_PER_LANE).clamp(1, GROUP_WIDTHS[-1])
+    # class c: the narrowest group of 4 << c lanes whose 5 (4 << c) rows hold
+    # the read; reads over 160 rows take the 32-lane class
+    cls = sum((rows > ROWS_PER_LANE * w).long() for w in GROUP_WIDTHS[:-1])
+    kmax = min(max(int(hmax), 1), MAX_KEY_LEN)
+    hbits = kmax.bit_length() if hlen is not None else 0
+    key = (cls << (hbits + 5)) | (lanes - 1)
+    if hlen is not None:
+        key |= hlen.long().clamp(0, kmax) << 5
+    perm = torch.argsort(key, stable=True)
+    seg = torch.zeros(len(GROUP_WIDTHS) + 1, dtype=torch.int32, device=rows.device)
+    seg[1:] = torch.bincount(cls, minlength=len(GROUP_WIDTHS)).cumsum(0)
+    return perm, seg
+
+
+def pair_plan(pools, ri: torch.Tensor, hi: torch.Tensor):
+    """plan_groups over the pairs (read column ri[p], haplotype column hi[p]) of
+    `pools`; pairs whose indices are out of range count as length 0, as in the
+    kernels' plan (the sweep writes NaN for them)."""
+    nr, nh = pools.rbase.shape[1], pools.e.shape[1]
+    ok = (ri >= 0) & (ri < nr) & (hi >= 0) & (hi < nh)
+    zero = torch.zeros((), dtype=pools.rlen.dtype, device=ri.device)
+    rows = torch.where(ok, pools.rlen[ri.long().clamp(0, nr - 1)], zero)
+    hlen = torch.where(ok, pools.hlen[hi.long().clamp(0, nh - 1)], zero)
+    return plan_groups(rows, hlen, pools.hmax)
+
+
+def plan_scratch(n: int, kmax: int) -> int:
+    """int32 words of the plan's scratch (csrc/pairhmm_sweep.cuh: plan_scratch)
+    for n items whose haplotype lengths are told apart up to kmax."""
+    return 2 * n + 8 + len(GROUP_WIDTHS) * (kmax + 1) * 32
 
 
 def _check(cond, what, msg):
@@ -125,10 +182,22 @@ def _check_pools(pools, what):
            "rlen and hlen must be int32")
     for t in pools:
         _check(t.device == dev, what, f"all operands must be on {dev}")
+    for t in reads + (pools.rlen, pools.hlen):
         _check(t.is_contiguous(), what, "all operands must be contiguous")
+    _check(pools.e.t().is_contiguous(), what,
+           "e must be haplotype-major (e.t() contiguous), as make_pools stores it")
     _check(he - 2 * rp - E_OFF >= 1 and rp >= 2, what, f"no room for a haplotype: He={he}, rp={rp}")
     _check(rp * nr < 2 ** 31 and he * nh < 2 ** 31, what, "operands too large")
     return rp, nr, he, nh
+
+
+def _check_pairs(ri, hi, dev, what):
+    _check(ri.dim() == 1 and ri.shape == hi.shape, what, "ri and hi must be 1-D of one length")
+    for t in (ri, hi):
+        _check(t.dtype == torch.int32, what, "ri and hi must be int32")
+        _check(t.device == dev, what, f"all operands must be on {dev}")
+        _check(t.is_contiguous(), what, "all operands must be contiguous")
+    _check(ri.numel() < 2 ** 31, what, "operands too large")
 
 
 def _raise_if_failed(lib, rc, what, shape):
@@ -144,23 +213,22 @@ def pairhmm_fwd(pools, ri: torch.Tensor, hi: torch.Tensor,
 
     pools: ops.pairhmm.Pools on one CUDA device. hap_n_mismatch picks the
     kernel instance that scores a haplotype N as a mismatch (gatk_tpu's v2,
-    v4-v7) instead of a match. Pairs whose indices or lengths are out of range
+    v4-v7) instead of a match. The launcher builds the plan of the pairs on
+    the device first (pair_plan is its plain version), so its time counts in
+    the launch's. Pairs whose indices or lengths are out of range
     (ri/hi outside the pools, rlen > rp - 1, hlen > hmax) come back as NaN; the
     kernel reads nothing out of bounds for them."""
     what = "pairhmm_fwd"
     rp, nr, he, nh = _check_pools(pools, what)
     dev = pools.rbase.device
-    _check(ri.dim() == 1 and ri.shape == hi.shape, what, "ri and hi must be 1-D of one length")
-    for t in (ri, hi):
-        _check(t.dtype == torch.int32, what, "ri and hi must be int32")
-        _check(t.device == dev, what, f"all operands must be on {dev}")
-        _check(t.is_contiguous(), what, "all operands must be contiguous")
+    _check_pairs(ri, hi, dev, what)
     n = ri.numel()
-    _check(n < 2 ** 31, what, "operands too large")
     lib = library("pairhmm_fwd")
     out = torch.empty(n, dtype=torch.float32, device=dev)
     reads = (pools.rbase, pools.rq, pools.iq, pools.dq, pools.gcp)
-    tensors = reads + (pools.rlen, pools.e, pools.hlen, ri, hi)
+    scratch = torch.empty(plan_scratch(n, min(pools.hmax, MAX_KEY_LEN)), dtype=torch.int32,
+                          device=dev)
+    tensors = reads + (pools.rlen, pools.e, pools.hlen, ri, hi, scratch)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pairhmm_fwd(*(t.data_ptr() for t in tensors), out.data_ptr(),
@@ -182,10 +250,35 @@ def pairhmm_matrix(pools) -> torch.Tensor:
     lib = library("pairhmm_matrix")
     out = torch.empty((nh, nr), dtype=torch.float32, device=dev)
     reads = (pools.rbase, pools.rq, pools.iq, pools.dq, pools.gcp)
-    tensors = reads + (pools.rlen, pools.e, pools.hlen)
+    scratch = torch.empty(plan_scratch(nr, 0), dtype=torch.int32, device=dev)
+    tensors = reads + (pools.rlen, pools.e, pools.hlen, scratch)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pairhmm_matrix(*(t.data_ptr() for t in tensors), out.data_ptr(),
                                 rp, nr, he, nh, stream)
     _raise_if_failed(lib, rc, what, f"rp={rp}, He={he}, NR={nr}, NH={nh}")
     return out
+
+
+def plan_on_card(pools, ri: torch.Tensor | None = None, hi: torch.Tensor | None = None):
+    """The plan the launchers build (csrc/pairhmm_sweep.cuh), run alone on the
+    card: of the pairs (ri, hi) of `pools`, or of its reads when ri is None.
+    Returns (perm, seg) int32, as plan_groups orders them up to items with
+    equal keys."""
+    what = "pairhmm_plan"
+    _check_pools(pools, what)
+    dev = pools.rbase.device
+    if ri is not None:
+        _check_pairs(ri, hi, dev, what)
+    nr, nh = pools.rbase.shape[1], pools.e.shape[1]
+    n = nr if ri is None else ri.numel()
+    kmax = 0 if ri is None else min(pools.hmax, MAX_KEY_LEN)
+    scratch = torch.zeros(plan_scratch(n, kmax), dtype=torch.int32, device=dev)
+    lib = library("pairhmm_fwd")
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        rc = lib.pairhmm_plan(ptr(ri), ptr(hi), pools.rlen.data_ptr(),
+                              None if ri is None else pools.hlen.data_ptr(), scratch.data_ptr(),
+                              n, nr, nh, kmax, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, rc, what, f"n={n}")
+    return scratch[:n], scratch[2 * n : 2 * n + len(GROUP_WIDTHS) + 1]

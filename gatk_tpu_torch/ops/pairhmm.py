@@ -24,6 +24,10 @@ which is also the kernel's oracle:
     column (csrc/pairhmm_matrix.cu; plain version `pairhmm_matrix_reference`).
     The cartesian route `start_likelihood_matrix` (-ERC GVCF, and the regions
     too large for the pool) goes through it.
+Both kernels sweep a read with a group of 4, 8, 16 or 32 lanes chosen by its
+length; the kernel wrappers (ops/_kernels) order the pairs or reads by group
+width on the device (`_kernels.plan_groups`) and get the results back in the
+caller's order, so nothing here depends on the order the kernels take.
 
 Haplotype N: an N on either side scores as a match, as in the host f64 model
 (pairhmm_model.base_priors) and gatk_tpu's CPU scan and matrix kernel.
@@ -169,7 +173,9 @@ def pack_haps(haps, rp, hmax=None, nh=None):
 
 class Pools(NamedTuple):
     """Packed reads and haplotypes on one device, as uint8 (lengths as int32):
-    rbase, rq, iq, dq, gcp (rp, NR); rlen (NR,); e (He, NH); hlen (NH,)."""
+    rbase, rq, iq, dq, gcp (rp, NR); rlen (NR,); e (He, NH), stored
+    haplotype-major (strides (1, He): each haplotype one row of bytes, the
+    layout the kernels read); hlen (NH,)."""
 
     rbase: torch.Tensor
     rq: torch.Tensor
@@ -191,7 +197,8 @@ class Pools(NamedTuple):
 
 def make_pools(read_tables, rlen, e, hlen, device) -> Pools:
     """Pools on `device` from host arrays: read_tables maps rbase/rq/iq/dq/gcp to
-    (rp, NR) arrays with values in 0..255; rlen/hlen any shape with NR/NH elements."""
+    (rp, NR) arrays with values in 0..255; e is (He, NH), uploaded haplotype-major;
+    rlen/hlen any shape with NR/NH elements."""
 
     def u8(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(device)
@@ -200,7 +207,7 @@ def make_pools(read_tables, rlen, e, hlen, device) -> Pools:
         return torch.from_numpy(np.ascontiguousarray(np.reshape(a, -1), dtype=np.int32)).to(device)
 
     return Pools(*(u8(read_tables[k]) for k in ("rbase", "rq", "iq", "dq", "gcp")),
-                 i32(rlen), u8(e), i32(hlen))
+                 i32(rlen), u8(np.transpose(e)).t(), i32(hlen))
 
 
 def cartesian_pairs(nr: int, nh: int):
@@ -268,7 +275,7 @@ def _forward(rbase, rq, iq, dq, gcp, rlen, e, hlen, rp, hmax, hap_n_mismatch):
     y0 = torch.where(hlen > 0, (2.0 ** INIT_LOG2) / hlen.clamp(min=1).to(f32), zero)
     row0 = iota == 0
     y0_full = torch.where(row0, y0[None], zero)  # (rp, *H)
-    e = e.to(torch.int32)
+    e = e.to(torch.int32, memory_format=torch.contiguous_format)  # pools hold e haplotype-major
 
     zeros = torch.zeros((rp, *shape), dtype=f32, device=dev)
     m1, x1, y1 = zeros, zeros, y0_full.expand(rp, *shape)  # diagonal d-1 (d = 0: cell (0, 0))
@@ -645,7 +652,7 @@ class PoolBatcher:
         nr, nh = self.nr_cap, self.nh_cap
         self._reads = {k: np.zeros((rp, nr), np.uint8) for k in ("rbase", "rq", "iq", "dq", "gcp")}
         self._rlen = np.ones(nr, np.int32)
-        self._e = np.zeros((he, nh), np.uint8)
+        self._e = np.zeros((nh, he), np.uint8)  # haplotype-major: the pools' e transposed
         self._hlen = np.ones(nh, np.int32)
         self._n_reads = 0
         self._n_haps = 0
@@ -675,7 +682,7 @@ class PoolBatcher:
             b = _as_u8(h)
             col = base + k
             self._hlen[col] = len(b)
-            self._e[E_OFF + p + hmax - len(b) : E_OFF + p + hmax, col] = b[::-1]
+            self._e[col, E_OFF + p + hmax - len(b) : E_OFF + p + hmax] = b[::-1]
         self._n_haps = base + len(haps)
         return base
 
@@ -726,7 +733,7 @@ class PoolBatcher:
         dev = self.device
         with _on(dev):
             pools = make_pools({k: v[:, :nr] for k, v in self._reads.items()},
-                               self._rlen[:nr], self._e[:, :nh], self._hlen[:nh], dev)
+                               self._rlen[:nr], self._e[:nh].T, self._hlen[:nh], dev)
             out = pairhmm_pairs(pools, torch.from_numpy(ri).to(dev), torch.from_numpy(hi).to(dev))
             rec = dict(values=None, out=_HostCopy(out), n=len(ri))
         for handle, off, take in self._pending:

@@ -175,8 +175,8 @@ def test_matrix_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         _kernels.pairhmm_matrix(pools._replace(rq=pools.rq.int()))
     with pytest.raises(ValueError, match="int32"):
         _kernels.pairhmm_matrix(pools._replace(hlen=pools.hlen.long()))
-    with pytest.raises(ValueError, match="contiguous"):
-        _kernels.pairhmm_matrix(pools._replace(e=pools.e.t().contiguous().t()))
+    with pytest.raises(ValueError, match="haplotype-major"):  # e row-major
+        _kernels.pairhmm_matrix(pools._replace(e=pools.e.contiguous()))
     with pytest.raises(ValueError, match="all operands must be on"):
         _kernels.pairhmm_matrix(pools._replace(rlen=pools.rlen.cpu()))
     with pytest.raises(ValueError, match="not a CUDA device"):
@@ -204,3 +204,111 @@ def test_cartesian_route_launches_the_matrix_kernel_and_raises_on_failure(cuda_d
     monkeypatch.setattr(_kernels, "library", broken)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         pairhmm.compute_likelihood_matrix(reads, haps, device=cuda_device)
+
+
+# Read lengths at every edge of the lane groups (4, 8, 16 and 32 lanes of 5 rows:
+# 20, 40, 80, 160 rows) and past one 160-row stripe.
+GROUP_EDGES = (1, 19, 20, 21, 39, 40, 41, 79, 80, 81, 159, 160, 161)
+
+
+def _edge_batch(seed, hap_n=0.0):
+    """Reads at every group edge with haplotypes of lengths from 1 to 512 (rp
+    320, hmax 512), every read with every haplotype, the pair list shuffled."""
+    rng = np.random.default_rng(seed)
+    hap_lens = (1, 512, *rng.integers(1, 513, 10))
+    reads, haps = _batch(rng, GROUP_EDGES, hap_lens)
+    if hap_n:
+        haps = [np.where(rng.random(len(h)) < hap_n, ord("N"), np.frombuffer(h, np.uint8))
+                .astype(np.uint8).tobytes() for h in haps]
+    return reads, haps, rng
+
+
+@pytest.mark.parametrize("hap_n_mismatch", [False, True])
+def test_pair_kernel_at_group_edges_in_a_shuffled_list(cuda_device, hap_n_mismatch):
+    """Both N-rule instances against the plain version at every group edge, in
+    one launch over a shuffled pair list; each result comes back at its pair's
+    index, bit for bit what the unshuffled list gives."""
+    reads, haps, rng = _edge_batch(11 + hap_n_mismatch, hap_n=0.02 if hap_n_mismatch else 0.0)
+    pools, ri, hi = _pools(reads, haps, 320, 512, cuda_device)
+    entry = pairhmm.pairhmm_pairs_hap_n_mismatch if hap_n_mismatch else pairhmm.pairhmm_pairs
+    order = torch.from_numpy(rng.permutation(ri.numel())).to(cuda_device)
+    ri_s, hi_s = ri[order].contiguous(), hi[order].contiguous()
+    got = entry(pools, ri_s, hi_s)
+    _assert_close(got, pairhmm.pairhmm_pairs_reference(pools, ri_s, hi_s, hap_n_mismatch))
+    assert torch.equal(got, entry(pools, ri, hi)[order])
+
+
+@pytest.mark.parametrize("hap_n_mismatch", [False, True])
+def test_pair_kernel_instances_at_the_narrowest_width(cuda_device, hap_n_mismatch):
+    """Reads of at most 20 rows (groups of 4 lanes, 8 pairs a warp) with
+    haplotype Ns, under each N rule."""
+    rng = np.random.default_rng(21)
+    reads, haps = _batch(rng, rng.integers(1, 21, 40), (15, 60, 300))
+    haps = [np.where(rng.random(len(h)) < 0.05, ord("N"), np.frombuffer(h, np.uint8))
+            .astype(np.uint8).tobytes() for h in haps]
+    pools, ri, hi = _pools(reads, haps, 160, 512, cuda_device)
+    entry = pairhmm.pairhmm_pairs_hap_n_mismatch if hap_n_mismatch else pairhmm.pairhmm_pairs
+    _assert_close(entry(pools, ri, hi),
+                  pairhmm.pairhmm_pairs_reference(pools, ri, hi, hap_n_mismatch))
+
+
+@pytest.mark.parametrize("seed,read_lens", [
+    (31, GROUP_EDGES),
+    # a region whose reads span all four widths, in no order
+    (32, tuple(np.random.default_rng(32).integers(1, 161, 150)) + (161, 318)),
+])
+def test_matrix_kernel_at_group_edges(cuda_device, seed, read_lens):
+    """The cartesian kernel against its plain version over reads of every
+    width, with haplotypes of lengths from 1 to 512; out[h, r] in the caller's
+    read order."""
+    rng = np.random.default_rng(seed)
+    reads, haps = _batch(rng, read_lens, (1, 512, *rng.integers(1, 513, 10)))
+    pools, ri, hi = _pools(reads, haps, 320, 512, cuda_device)
+    got = pairhmm.pairhmm_matrix(pools)
+    _assert_close(got, pairhmm.pairhmm_matrix_reference(pools))
+    _assert_close(got.reshape(-1), pairhmm.pairhmm_pairs(pools, ri, hi))
+
+
+def test_kernels_write_nan_for_out_of_range_pairs(cuda_device):
+    """Indices outside the pools and reads longer than rp - 1 give NaN, beside
+    pairs that are scored."""
+    rng = np.random.default_rng(41)
+    pools, ri, hi = _pools(*_batch(rng, (10, 50, 120), (80, 200)), 160, 512, cuda_device)
+    ri = torch.cat([ri, torch.tensor([-1, 3, 0], dtype=torch.int32, device=cuda_device)])
+    hi = torch.cat([hi, torch.tensor([0, 0, 2], dtype=torch.int32, device=cuda_device)])
+    got = pairhmm.pairhmm_pairs(pools, ri, hi)
+    torch.cuda.synchronize()
+    assert got[-3:].isnan().all() and not got[:-3].isnan().any()
+    long_read = pools._replace(rlen=pools.rlen.clone().fill_(200))
+    assert pairhmm.pairhmm_matrix(long_read).isnan().all()
+
+
+@pytest.mark.parametrize("reads_only", [False, True])
+def test_plan_kernels_order_as_the_plain_plan(cuda_device, reads_only):
+    """The counting sort the launchers run (csrc/pairhmm_sweep.cuh) gives the
+    segments of _kernels.plan_groups and the same keys in the same order; only
+    items with equal keys may come in another order."""
+    from gatk_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(51)
+    reads, haps = _batch(rng, (*GROUP_EDGES, *rng.integers(1, 319, 60)),
+                         (1, 512, *rng.integers(1, 513, 6)))
+    pools, ri, hi = _pools(reads, haps, 320, 512, cuda_device)
+    order = torch.from_numpy(rng.permutation(ri.numel())).to(cuda_device)
+    ri, hi = ri[order].contiguous(), hi[order].contiguous()
+    if reads_only:
+        rows, hlen = pools.rlen.cpu(), None
+        got_perm, got_seg = _kernels.plan_on_card(pools)
+    else:
+        rows, hlen = pools.rlen.cpu()[ri.cpu().long()], pools.hlen.cpu()[hi.cpu().long()]
+        got_perm, got_seg = _kernels.plan_on_card(pools, ri, hi)
+    want_perm, want_seg = _kernels.plan_groups(rows, hlen, pools.hmax)
+    got_perm = got_perm.cpu().long()
+    assert torch.equal(got_seg.cpu(), want_seg)
+    assert torch.equal(torch.sort(got_perm).values, torch.arange(len(rows)))
+    lanes = ((rows.long() + 4) // 5).clamp(1, 32)
+    keys = [rows.long() > 20, rows.long() > 40, rows.long() > 80, lanes]
+    if hlen is not None:
+        keys.insert(3, hlen.long())
+    for k in keys:
+        assert torch.equal(k[got_perm], k[want_perm])
