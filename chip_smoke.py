@@ -29,14 +29,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
            kernels must have scored exactly the genotyped regions' pairs
   main_launch  the largest pair-kernel launch of the hc run, held against the
            plain version and timed at that shape
+  gcnv     the germline CNV tools through the port's CLI on a GermlineCNVCaller
+           shard of 32 samples x 10,000 intervals (utils/synthetic.write_cnv_cohort,
+           DenoisingConfig's defaults): CollectReadCounts (on the hc sample's
+           BAM), DetermineGermlineContigPloidy, GermlineCNVCaller --device cuda
+           and PostprocessGermlineCNVCalls; every contig-ploidy call must be the
+           planted one, the planted CN called on >= 95 % of the event intervals
+           and the baseline on >= 99 % of the rest. It reports the seconds of
+           fit's posterior passes, ADAM steps and scale steps, and from a
+           profiled second GermlineCNVCaller run their launches and the device
+           idle share
+  cnv_hmm  the copy-number HMM kernel (csrc/cnv_hmm.cu) against its plain
+           version on the gcnv run's fitted shard and on an edge batch (one
+           interval, a chain break at every interval, stay 1, 32 states);
+           timed beside its bound
+  somatic_cnv  a panel of 40 normals x 50,000 intervals built in-process, its SVD
+           on the card, a tumor case denoised against it, then ModelSegments
+           --device cuda (all 50 contigs, 10,000 het sites) and
+           CallCopyRatioSegments through the CLI; every planted breakpoint must
+           be found within 3 intervals and the posterior medians within 0.1
+           (log2 copy ratio) and 0.05 (minor-allele fraction) of the planted
+           values. It reports the SVD's milliseconds, the host segmentation's
+           seconds and the chains' seconds and launches
   matrix   the cartesian kernel on the bench workload's 1,024 unique pairs, a
            ragged rp 320 / hmax 2048 region with N, a region of reads at every
            lane-group edge, a region of 1,100
            haplotypes and the largest launch of the gvcf run, against its plain
            version; timed beside its bound and beside the pair kernel on the
            same product expanded into pairs
-Each of the runs hc, gvcf, mutect2 and variants starts with every kernel's
-launch count at 0 and reads the counts at its end. hc, gvcf and mutect2 also
+Each of the runs hc, gvcf, mutect2, gcnv and variants starts with every
+kernel's launch count at 0 and reads the counts at its end. hc, gvcf and mutect2 also
 profile a second run (device time of the sweep kernels, of the plan kernels
 their launchers run first, and of all device work) and report every launch's
 useful cells, bound, group-width histogram and slot use (launch_stats), and
@@ -108,12 +130,14 @@ def nvidia_smi_line():
 
 
 def _entries():
-    """The port's kernel entries, each with its launch and pair counters."""
-    from gatk_tpu_torch.ops import pairhmm
+    """The port's kernel entries, each with its launch counter and a counter of
+    its work (PairHMM pairs, HMM states)."""
+    from gatk_tpu_torch.ops import cnv_hmm, pairhmm
 
     return {"pairhmm_fwd": pairhmm.pairhmm_pairs,
             "pairhmm_fwd_hap_n_mismatch": pairhmm.pairhmm_pairs_hap_n_mismatch,
-            "pairhmm_matrix": pairhmm.pairhmm_matrix}
+            "pairhmm_matrix": pairhmm.pairhmm_matrix,
+            "cnv_hmm": cnv_hmm.hmm_forward_backward}
 
 
 def reset_counts():
@@ -122,7 +146,14 @@ def reset_counts():
 
 
 def read_counts():
-    return {name: dict(launches=e.launches, pairs=e.pairs) for name, e in _entries().items()}
+    return {name: dict(launches=e.launches, **({"cells": e.cells} if hasattr(e, "cells") else
+                                               {"pairs": e.pairs}))
+            for name, e in _entries().items()}
+
+
+def _pairs(counts):
+    """PairHMM pairs scored, summed over the PairHMM entries."""
+    return sum(c.get("pairs", 0) for c in counts.values())
 
 
 # --------------------------------------------------------------------------- device
@@ -581,7 +612,7 @@ def _run_tool(argv, counting):
         wall = time.perf_counter() - t0
     check(rc == 0, f"{' '.join(argv)} exited {rc}")
     counts = read_counts()
-    pairs = sum(c["pairs"] for c in counts.values())
+    pairs = _pairs(counts)
     check(pairs == genotyped[0], f"{argv[0]}: the kernels scored {pairs} pairs, the genotyped "
                                  f"regions hold {genotyped[0]} reads x haplotypes")
     return wall, counts, STAGES.report()
@@ -591,33 +622,75 @@ SWEEPS = ["pairhmm_fwd_kernel", "pairhmm_matrix_kernel"]
 PLAN = ["plan_count", "plan_scan", "plan_scatter"]  # csrc/pairhmm_sweep.cuh
 
 
-def _device_profile(argv):
-    """The same run again under torch.profiler: device time of the sweep
-    kernels, of the plan kernels their launchers run first, and of all device
-    work (copies included) beside the run's wall time. The profiler slows the
-    host, so this wall is not the one reported above."""
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel")  # CUDA runtime / driver launch calls
+
+
+def _profile(fn, range_prefix=None, kernels=None):
+    """fn() under torch.profiler, read from the profiler's raw events (building
+    its FunctionEvents takes minutes for a run of 10^5 launches): wall s,
+    device busy ms (kernels and copies), idle share, kernel launches (CUDA
+    runtime or driver launch calls, ours by ctypes included); for each
+    kernels[k], a list of name parts, the device ms of the kernels whose names
+    hold one as device_<k>_ms; and per range whose name starts with
+    range_prefix how often it ran and the launches the host made inside it.
+    The profiler slows the host, so this wall is not the unprofiled one."""
+    import bisect
+
     from torch.profiler import ProfilerActivity, profile
 
-    from gatk_tpu_torch import cli
-
+    kernels = kernels or {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rc = cli.main(argv)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(rc == 0, f"profiled {' '.join(argv)} exited {rc}")
-    stats = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in stats)
-    kernel_us = sum(e.self_device_time_total for e in stats
-                    if any(k in e.key for k in SWEEPS))
-    plan_us = sum(e.self_device_time_total for e in stats if any(k in e.key for k in PLAN))
-    if busy_us == 0:  # the profiler saw no device activity: say so, invent nothing
-        return dict(profiled_wall_s=wall, device_kernel_ms="not measured",
-                    device_plan_ms="not measured", device_busy_ms="not measured",
-                    device_idle_share="not measured")
-    return dict(profiled_wall_s=wall, device_kernel_ms=kernel_us / 1e3,
-                device_plan_ms=plan_us / 1e3, device_busy_ms=busy_us / 1e3,
-                device_idle_share=1 - busy_us / 1e6 / wall)
+    busy_ns, launches, ranges = 0, [], []
+    named_ns = dict.fromkeys(kernels, 0)
+    events = prof.profiler.kineto_results.events()
+    on_card = [e.device_type() == torch.autograd.DeviceType.CUDA for e in events]
+    # a device event named as a host event is a record_function range's copy on
+    # the device's timeline, not device work
+    host_names = {e.name() for e, card in zip(events, on_card) if not card}
+    for e, card in zip(events, on_card):
+        name = e.name()
+        if range_prefix and name.startswith(range_prefix):
+            if not card:
+                ranges.append((name, e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif card and name not in host_names:
+            busy_ns += e.duration_ns()
+            for k, parts in kernels.items():
+                if any(p in name for p in parts):
+                    named_ns[k] += e.duration_ns()
+        elif not card and name.startswith(LAUNCH_EVENTS):
+            launches.append(e.start_ns())
+    launches.sort()
+    per_range = {}
+    for name, lo, hi in ranges:
+        r = per_range.setdefault(name, dict(ranges=0, launches=0))
+        r["ranges"] += 1
+        r["launches"] += bisect.bisect_right(launches, hi) - bisect.bisect_left(launches, lo)
+    # the profiler saw no device activity or no launch call: say so, invent nothing
+    if not launches:
+        per_range = {name: dict(r, launches="not measured") for name, r in per_range.items()}
+    out = dict(profiled_wall_s=wall, profiled_launches=len(launches) or "not measured")
+    if busy_ns:
+        out.update(device_busy_ms=busy_ns / 1e6, device_idle_share=1 - busy_ns / 1e9 / wall,
+                   **{f"device_{k}_ms": ns / 1e6 for k, ns in named_ns.items()})
+    else:
+        out.update(device_busy_ms="not measured", device_idle_share="not measured",
+                   **{f"device_{k}_ms": "not measured" for k in kernels})
+    if range_prefix:
+        out["ranges"] = per_range
+    return out
+
+
+def _profile_tool(argv):
+    """The same tool run again under _profile: device time of the sweep kernels,
+    of the plan kernels their launchers run first, and of all device work."""
+    from gatk_tpu_torch import cli
+
+    return _profile(lambda: check(cli.main(argv) == 0, f"profiled {' '.join(argv)} failed"),
+                    kernels=dict(kernel=SWEEPS, plan=PLAN))
 
 
 def _indels_called(planted, recs):
@@ -646,14 +719,14 @@ def phase_hc(sample, tmp):
                   if not (v.pos in by_pos and by_pos[v.pos]["ref"] == v.ref
                           and by_pos[v.pos]["alts"] == [v.alt] and by_pos[v.pos]["gt"] == "0/1")]
     indel_called = _indels_called(indels, recs)
-    profiled = _device_profile(argv[:-1] + [out + ".2"])
+    profiled = _profile_tool(argv[:-1] + [out + ".2"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second HaplotypeCaller run wrote a different VCF")
     res = dict(phase="hc", reads=sample["n_reads"], records=len(recs), wall_s=wall,
                reads_per_s=sample["n_reads"] / wall, snvs_called=len(snvs) - len(missed_snv),
                snvs_planted=len(snvs), indels_called=len(indel_called),
                indels_planted=len(indels), launches=counts["pairhmm_fwd"]["launches"],
-               pairs=sum(c["pairs"] for c in counts.values()), counts=counts, stages=stages,
+               pairs=_pairs(counts), counts=counts, stages=stages,
                **profiled, **_launches_summary(kept))
     emit(res)
     check(not missed_snv, f"planted SNVs not called as 0/1: {missed_snv}")
@@ -681,13 +754,13 @@ def phase_gvcf(sample, tmp):
     found = [v.pos for v in planted
              if any(abs(r["pos"] - v.pos) <= 20 and "<NON_REF>" in r["alts"] and len(r["alts"]) > 1
                     for r in recs)]
-    profiled = _device_profile(argv[:-1] + [out + ".2"])
+    profiled = _profile_tool(argv[:-1] + [out + ".2"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second -ERC GVCF run wrote a different GVCF")
     res = dict(phase="gvcf", interval=interval, records=len(recs), wall_s=wall,
                variants_planted=len(planted), variants_called=len(found),
                launches=counts["pairhmm_matrix"]["launches"],
-               pairs=sum(c["pairs"] for c in counts.values()), counts=counts, stages=stages,
+               pairs=_pairs(counts), counts=counts, stages=stages,
                **profiled, **_launches_summary(kept))
     emit(res)
     check(len(found) == len(planted) and planted, f"GVCF missed planted variants: "
@@ -727,7 +800,7 @@ def phase_mutect2(tmp):
     passing = {(r["pos"], r["ref"], r["alts"][0]) for r in frecs if r["filter"] == "PASS"}
     somatic_pass = sum((v.pos, v.ref, v.alt) in passing for v in sample["somatic"])
 
-    profiled = _device_profile(argv[:-1] + [out + ".2"])
+    profiled = _profile_tool(argv[:-1] + [out + ".2"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second Mutect2 run wrote a different VCF")
     largest = None
@@ -744,7 +817,7 @@ def phase_mutect2(tmp):
                germline_planted=len(sample["germline"]), germline_called=germline_called,
                filter_s=filter_s, passing=len(passing), somatic_passing=somatic_pass,
                launches=counts["pairhmm_fwd"]["launches"],
-               pairs=sum(c["pairs"] for c in counts.values()), counts=counts,
+               pairs=_pairs(counts), counts=counts,
                stages=stages, largest_launch=largest, **profiled, **_launches_summary(kept))
     emit(res)
     check(not missed_snv, f"planted somatic SNVs not in the unfiltered VCF: {missed_snv}")
@@ -822,6 +895,303 @@ def phase_matrix(dev, kept):
     return res
 
 
+# --------------------------------------------------------------------------- CNV
+
+# GermlineCNVCaller's shard and the somatic case (utils/synthetic.py): the
+# gCNV cohort at DenoisingConfig's defaults; the panel of normals at 40 x
+# 50,000, and the case's every interval and het site through ModelSegments
+GCNV_COHORT = dict(seed=0, n_samples=32, n_intervals=10000)
+SOMATIC_CASE = dict(seed=0, n_normals=40, n_intervals=50000, n_contigs=50, n_event_contigs=7,
+                    n_hets=10000)
+GCNV_EVENT_SHARE, GCNV_BASELINE_SHARE = 0.95, 0.99
+SOMATIC_CR_TOL, SOMATIC_MAF_TOL = 0.1, 0.05  # |posterior median - planted|
+HMM_TOL = 1e-4  # max |log posterior kernel - plain|
+PLAIN_PROFILED = 500  # intervals of the plain HMM whose launches are counted
+
+
+def _device_flag(dev):
+    return ["--device", dev.type]
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def keeping_models():
+    """The GermlineDenoisingModel of every GermlineCNVCaller run inside the
+    block, kept when its fit starts (the CLI builds it inside the tool)."""
+    from gatk_tpu_torch.cnv import denoising
+
+    fit = denoising.GermlineDenoisingModel.fit
+    models = []
+
+    def keep(self, *args, **kwargs):
+        models.append(self)
+        return fit(self, *args, **kwargs)
+
+    denoising.GermlineDenoisingModel.fit = keep
+    try:
+        yield models
+    finally:
+        denoising.GermlineDenoisingModel.fit = fit
+
+
+def phase_gcnv(dev, tmp, sample):
+    """The four germline tools through the port's CLI on a GermlineCNVCaller
+    shard: CollectReadCounts on the hc phase's BAM (the cohort's counts are
+    synthetic), DetermineGermlineContigPloidy, GermlineCNVCaller --device cuda
+    and PostprocessGermlineCNVCalls of one sample; then GermlineCNVCaller
+    again under torch.profiler."""
+    from gatk_tpu_torch import cli
+    from gatk_tpu_torch.cnv import cnv_io
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "gcnv")
+    t0 = time.perf_counter()
+    coh = synthetic.write_cnv_cohort(d, **GCNV_COHORT)
+    write_s = time.perf_counter() - t0
+    bins = os.path.join(d, "chrM.interval_list")
+    with open(bins, "w") as fh:
+        fh.write(f"@HD\tVN:1.6\n@SQ\tSN:{sample['contig']}\tLN:{sample['length']}\n" + "".join(
+            f"{sample['contig']}\t{s + 1}\t{min(s + 1000, sample['length'])}\t+\t.\n"
+            for s in range(0, sample["length"], 1000)))
+    inputs = sum((["-I", p] for p in coh["counts"]), [])
+    calls = os.path.join(d, "gcnv-calls")
+    vcf = os.path.join(d, "sample0.vcf")
+    argv = {
+        "CollectReadCounts": ["-I", sample["bam"], "-L", bins,
+                              "-O", os.path.join(d, "hc.counts.tsv")],
+        "DetermineGermlineContigPloidy": [*inputs, "--contig-ploidy-priors", coh["ploidy_priors"],
+                                          "-O", d, "--output-prefix", "ploidy"],
+        "GermlineCNVCaller": [*inputs, "--contig-ploidy-calls", os.path.join(d, "ploidy-calls"),
+                              "-O", d, "--output-prefix", "gcnv", *_device_flag(dev)],
+        "PostprocessGermlineCNVCalls": ["--calls-shard-path", calls, "--sample-index", "0",
+                                        "--output-genotyped-intervals", vcf],
+    }
+    tool_s = {}
+    reset_counts()  # counts of the path below only
+    with keeping_models() as models:
+        t_path = time.perf_counter()
+        for tool, args in argv.items():
+            t0 = time.perf_counter()
+            check(cli.main([tool, *args]) == 0, f"{tool} failed")
+            _sync(dev)
+            tool_s[tool] = time.perf_counter() - t0
+        wall = time.perf_counter() - t_path
+    counts = read_counts()
+    check(counts["cnv_hmm"]["launches"] > 0, "GermlineCNVCaller never launched the HMM kernel")
+    model = models[0]
+    ploidy, _ = cnv_io.read_contig_ploidy_calls(os.path.join(d, "ploidy-calls"))
+    ploidy_wrong = sorted((s, c) for s in coh["samples"] for c, p in coh["ploidy"][s].items()
+                          if ploidy[s].get(c) != p)
+    events, baseline = synthetic.cnv_call_concordance(coh, np.load(os.path.join(calls, "cn.npy")))
+    n_records = sum(1 for ln in open(vcf) if not ln.startswith("#"))
+
+    profiled_argv = ["GermlineCNVCaller", *argv["GermlineCNVCaller"][:-4], "--output-prefix",
+                     "gcnv_profiled", *_device_flag(dev)]
+    profiled = _profile(lambda: check(cli.main(profiled_argv) == 0,
+                                      "profiled GermlineCNVCaller failed"), "gcnv.")
+    parts = profiled.pop("ranges")
+    fit = {part: dict(seconds=st["seconds"], calls=st["calls"],
+                      launches_profiled=parts.get(f"gcnv.{part}", {}).get("launches"))
+           for part, st in model.stats.items()}
+    res = dict(phase="gcnv", samples=model.S, intervals=model.T, states=model.C,
+               events_planted=len(coh["events"]), write_s=write_s, wall_s=wall, tool_s=tool_s,
+               fit=fit, counts={"cnv_hmm": counts["cnv_hmm"]},
+               ploidy_calls_wrong=ploidy_wrong, event_interval_share=events,
+               baseline_interval_share=baseline, vcf_records=n_records,
+               **profiled)
+    emit(res)
+    check(not ploidy_wrong, f"contig-ploidy calls differ from the planted ploidy: {ploidy_wrong}")
+    check(events >= GCNV_EVENT_SHARE, f"planted CN called on {events:.4f} of the event intervals")
+    check(baseline >= GCNV_BASELINE_SHARE, f"baseline called on {baseline:.4f} of the others")
+    check(n_records == model.T, "PostprocessGermlineCNVCalls wrote the wrong number of records")
+    return res, model
+
+
+def _hmm_bound(S, T, C):
+    """The least time of one forward-backward pass: log_em and log_pi read
+    once, stay read once, the posteriors written once, over 3.35 TB/s; and the
+    FP32 operations of the plain version per sample and interval, a
+    transcendental counted as one (forward 5 C^2 + 9 C, backward 5 C^2 + 10 C,
+    normalisation 6 C + 2), over 67 TFLOP/s. It assumes no step waits on the
+    one before; the kernel's T dependent steps a direction do."""
+    ops = S * T * (10 * C * C + 25 * C + 2)
+    nbytes = 4 * (3 * S * T * C + max(T - 1, 0))
+    ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
+
+
+def _hmm_edge_cases(dev):
+    """(name, log_em, log_pi, stay) at the kernel's edges: one interval, a
+    chain break at every interval (stay 0), stay 1 (off-diagonal log
+    transitions -inf), and one state on every lane (C = 32)."""
+    rng = np.random.default_rng(11)
+    out = []
+    for name, S, T, C, stay in (("T=1", 4, 1, 6, np.zeros(0)), ("break everywhere", 4, 64, 6, 0.0),
+                                ("stay=1", 4, 64, 6, 1.0), ("C=32", 3, 64, 32, 0.9)):
+        base = rng.integers(0, C, (S, 1, 1))
+        pi = np.where(np.arange(C)[None, None, :] == base, 1.0 - (C - 1) * 1e-6, 1e-6)
+        arrays = (rng.normal(-5.0, 3.0, (S, T, C)), np.broadcast_to(np.log(pi), (S, T, C)),
+                  np.broadcast_to(stay, (max(T - 1, 0),)))
+        out.append((name, *(torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
+                            for a in arrays)))
+    return out
+
+
+def phase_cnv_hmm(dev, model):
+    """The HMM kernel against its plain version on the card, on the posterior
+    pass of the gcnv run's fitted shard and on the edge batch; timed beside its
+    bound."""
+    from gatk_tpu_torch.ops import _kernels, cnv_hmm
+
+    with torch.no_grad():
+        log_em = model._emission(model.params).contiguous()
+        log_pi, stay = model._prior_and_trans()
+    args = (log_em, log_pi.contiguous(), stay.contiguous())
+    S, T, C = log_em.shape
+    got = _kernels.cnv_hmm(*args)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = cnv_hmm.hmm_forward_backward_reference(*args)
+    t1.record()
+    t1.synchronize()
+    plain_ms = t0.elapsed_time(t1)  # one call: the plain version takes seconds
+    check(torch.isfinite(got).all(), "HMM kernel: non-finite log posteriors on the shard")
+    err_shard = (got - want).abs().max().item()
+    equal_share = (got == want).float().mean().item()
+    edges = []
+    for name, *edge in _hmm_edge_cases(dev):
+        g, w = _kernels.cnv_hmm(*edge), cnv_hmm.hmm_forward_backward_reference(*edge)
+        check(torch.isfinite(g).all(), f"HMM kernel: non-finite log posteriors at {name}")
+        edges.append(dict(case=name, shape=list(edge[0].shape),
+                          max_abs_err=(g - w).abs().max().item()))
+    kernel_ms = median_ms(lambda: _kernels.cnv_hmm(*args), reps=30, warmup=3)
+    err = max(err_shard, *(e["max_abs_err"] for e in edges))
+    # the launches the kernel replaces: the plain version's on the shard's first
+    # PLAIN_PROFILED intervals (a fixed number each), scaled to the pass
+    n = min(T, PLAIN_PROFILED)
+    head = (args[0][:, :n].contiguous(), args[1][:, :n].contiguous(), args[2][: n - 1].contiguous())
+    plain = _profile(lambda: cnv_hmm.hmm_forward_backward_reference(*head))
+    plain_launches = plain["profiled_launches"]
+    per_pass = (round(plain_launches * T / n) if isinstance(plain_launches, int)
+                else "not measured")
+    res = dict(phase="cnv_hmm", samples=S, intervals=T, states=C, max_abs_err_shard=err_shard,
+               bitwise_equal_share=equal_share, edges=edges, max_abs_err=err, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, plain_launches_profiled=plain_launches,
+               plain_intervals_profiled=n, plain_launches_per_pass=per_pass,
+               step_us=kernel_ms * 1e3 / T, **_hmm_bound(S, T, C),
+               latency_note=f"{T} dependent steps a direction set the kernel's time; the bound "
+                            "assumes no step waits on the one before")
+    emit(res)
+    check(err <= HMM_TOL, f"HMM kernel: max |kernel - plain| = {err} > {HMM_TOL}")
+    return res
+
+
+@contextlib.contextmanager
+def timing(module, name, dev, into):
+    """Times every call of module.<name> between device synchronisations into
+    into[name] (seconds, calls), and keeps the last call's arguments."""
+    fn = getattr(module, name)
+    rec = into.setdefault(name, dict(seconds=0.0, calls=0))
+
+    def timed(*args, **kwargs):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _sync(dev)
+        rec["seconds"] += time.perf_counter() - t0
+        rec["calls"] += 1
+        rec["args"] = args
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield rec
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_somatic_cnv(dev, tmp):
+    """The panel of normals (build_panel_of_normals, its SVD on the card) and
+    denoise_sample in-process, the machine having no h5py for the panel's
+    file; the denoised copy ratios written with write_sam_tsv; then
+    ModelSegments --device cuda and CallCopyRatioSegments through the CLI."""
+    from gatk_tpu_torch import cli
+    from gatk_tpu_torch.cnv import mcmc, somatic
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "somatic")
+    t0 = time.perf_counter()
+    case = synthetic.write_somatic_cnv_case(d, **SOMATIC_CASE)
+    write_s = time.perf_counter() - t0
+    timed = {}
+    t_path = time.perf_counter()
+    with timing(torch.linalg, "svd", dev, timed):
+        pon = somatic.build_panel_of_normals(case["normal_counts"], case["intervals"], device=dev)
+    pon_s = time.perf_counter() - t_path
+    _, denoised = somatic.denoise_sample(pon, case["case_counts"])
+    ivs = [case["intervals"][i] for i in pon.panel_interval_idx]
+    header = ["@HD\tVN:1.6"] + [f"@SQ\tSN:{c}\tLN:{n}" for c, n in case["sq"]]
+    cr = os.path.join(d, "case.denoised.tsv")
+    rows = [(c, s, e, somatic.format_double(v)) for (c, s, e), v in zip(ivs, denoised)]
+    somatic.write_sam_tsv(cr, "CASE", ["CONTIG", "START", "END", "LOG2_COPY_RATIO"], rows, header)
+    denoise_s = time.perf_counter() - t_path - pon_s
+    t0 = time.perf_counter()
+    with timing(somatic, "segment_values", dev, timed), \
+            timing(mcmc, "_copy_ratio_chain", dev, timed), \
+            timing(mcmc, "_allele_fraction_chain", dev, timed):
+        check(cli.main(["ModelSegments", "--denoised-copy-ratios", cr,
+                        "--allelic-counts", case["allelic_counts"], "-O", d,
+                        "--output-prefix", "case", *_device_flag(dev)]) == 0,
+              "ModelSegments failed")
+    model_segments_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    called = os.path.join(d, "case.called.seg")
+    check(cli.main(["CallCopyRatioSegments", "-I", os.path.join(d, "case.cr.seg"),
+                    "-O", called]) == 0, "CallCopyRatioSegments failed")
+    call_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_path
+    model_rows = somatic.read_sam_tsv(os.path.join(d, "case.modelFinal.seg"))[3]
+    calls = [r[-1] for r in somatic.read_sam_tsv(called)[3]]
+    score = synthetic.score_somatic_segments(case, model_rows)
+
+    # the SVD alone at the panel's shape, and each chain again under the profiler
+    panel = timed["svd"]["args"][0]
+    svd_ms = median_ms(lambda: torch.linalg.svd(panel, full_matrices=False), reps=5, warmup=1)
+    chains = {}
+    for name in ("_copy_ratio_chain", "_allele_fraction_chain"):
+        _, *chain_args = timed[name]["args"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        profiled = _profile(lambda: getattr(mcmc, name)(gen, *chain_args))
+        chains[name] = dict(seconds=timed[name]["seconds"], points=int(chain_args[0].numel()),
+                            segments=chain_args[-3], sweeps=chain_args[-2] + chain_args[-1],
+                            launches_profiled=profiled.pop("profiled_launches"), **profiled)
+    res = dict(phase="somatic_cnv", normals=len(case["normals"]), panel_intervals=len(ivs),
+               panel_shape=list(panel.shape), contigs=len(case["sq"]),
+               hets=len(case["het_index"]), write_s=write_s, wall_s=wall, pon_s=pon_s,
+               svd_s=timed["svd"]["seconds"], svd_ms=svd_ms, denoise_s=denoise_s,
+               model_segments_s=model_segments_s,
+               segmentation_s=timed["segment_values"]["seconds"], call_s=call_s,
+               chains=chains, calls={c: calls.count(c) for c in "+-0"}, **score)
+    emit(res)
+    check(not score["breakpoints_missed"],
+          f"planted breakpoints not found within {synthetic.BREAKPOINT_TOLERANCE} intervals: "
+          f"{score['breakpoints_missed']}")
+    check(score["log2_cr_max_err"] < SOMATIC_CR_TOL,
+          f"a log2 copy-ratio median is {score['log2_cr_max_err']:.4f} off its planted value")
+    check(score["maf_max_err"] < SOMATIC_MAF_TOL,
+          f"a minor-allele-fraction median is {score['maf_max_err']:.4f} off its planted value")
+    check(len(calls) == len(model_rows), "CallCopyRatioSegments did not call every segment")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -841,16 +1211,21 @@ def main():
         hc, kept_hc = phase_hc(sample, tmp)
         gvcf, kept_gvcf = phase_gvcf(sample, tmp)
         m2 = phase_mutect2(tmp)
+        gcnv, gcnv_model = phase_gcnv(dev, tmp, sample)
+        hmm = phase_cnv_hmm(dev, gcnv_model)
+        del gcnv_model
+        phase_somatic_cnv(dev, tmp)
     main_launch = phase_main_launch(kept_hc)
     mat = phase_matrix(dev, kept_gvcf)
     smi = nvidia_smi_line()
 
     # launches on each path, counted from 0 at its start; a kernel is timed at
     # the largest launch of the path it serves. No single PyTorch call computes
-    # the PairHMM, so there is no library time.
+    # the PairHMM or the HMM's forward-backward pass, so there is no library time.
     def by_path(name):
         return {path: r["counts"][name]["launches"]
-                for path, r in (("hc", hc), ("gvcf", gvcf), ("mutect2", m2), ("variants", var))}
+                for path, r in (("hc", hc), ("gvcf", gvcf), ("mutect2", m2), ("variants", var),
+                                ("gcnv", gcnv)) if name in r["counts"]}
 
     fwd_err = max(k["max_abs_err_bench"], k["max_abs_err_ragged"], main_launch["max_abs_err"],
                   *(v["max_abs_err_ragged"] for v in var["variants"] if not v["hap_n_mismatch"]))
@@ -882,6 +1257,12 @@ def main():
              launches_by_path=by_path("pairhmm_fwd_hap_n_mismatch"), max_abs_err=hapn_err,
              ms=hapn["kernel_ms"], plain_ms=hapn["plain_ms"], bound_ms=hapn["bound_ms"],
              bound_by=hapn["bound_by"], library_ms=None),
+        dict(name="cnv_hmm", route="cuda", source=src + "cnv_hmm.cu",
+             replaces="gatk_tpu/cnv/denoising.py:42 (_hmm_forward_backward under lax.scan; "
+                      "not a Pallas kernel)",
+             launches=gcnv["counts"]["cnv_hmm"]["launches"], launches_by_path=by_path("cnv_hmm"),
+             max_abs_err=hmm["max_abs_err"], ms=hmm["kernel_ms"], plain_ms=hmm["plain_ms"],
+             bound_ms=hmm["bound_ms"], bound_by=hmm["bound_by"], library_ms=None),
     ]
     for kd in kernels:
         kd["max_abs_diff"] = kd["max_abs_err"]

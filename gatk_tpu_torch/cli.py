@@ -1,8 +1,8 @@
 """CLI front-end of the port: python -m gatk_tpu_torch ToolName --args...
 
 Tool names and flags mirror gatk_tpu's (and GATK4's); the registry holds the
-tools ported so far (HaplotypeCaller, and Mutect2 with its
-filtering and contamination tools).
+tools ported so far (HaplotypeCaller; Mutect2 with its filtering and
+contamination tools; the germline and somatic CNV tools).
 """
 from __future__ import annotations
 
@@ -79,6 +79,8 @@ def standard_io_parser(description: str, reference_required=True):
 
 def _register_builtin_tools():
     from .tools import hc_tool, mutect_tool  # noqa: F401
+    from .tools import cnv_tools  # noqa: F401
+    from .tools import somatic_cnv_tools  # noqa: F401
 
 
 _register_builtin_tools()

@@ -8,14 +8,18 @@ reused. All sources build in parallel, one nvcc each. The libraries are loaded
 with ctypes: pointers and the stream go in as c_void_p, and each launcher
 returns cudaGetLastError(), which the wrapper turns into an exception.
 
-Both kernels sweep a read with a group of 4, 8, 16 or 32 lanes of a warp,
-chosen by its length (csrc/pairhmm_sweep.cuh). Before the sweep each launcher
-orders the pairs (or the reads) so that like ones share a warp, by a counting
-sort on the card in three small kernels whose plain version is `plan_groups`;
-the wrappers allocate its scratch, and the sweep writes each result in the
-caller's order. The kernels read each haplotype as one row of bytes: the pools'
-e (He, NH) is stored haplotype-major (ops/pairhmm.make_pools), and the wrappers
-pass it as it is.
+Both PairHMM kernels sweep a read with a group of 4, 8, 16 or 32 lanes of a
+warp, chosen by its length (csrc/pairhmm_sweep.cuh). Before the sweep each
+launcher orders the pairs (or the reads) so that like ones share a warp, by a
+counting sort on the card in three small kernels whose plain version is
+`plan_groups`; the wrappers allocate its scratch, and the sweep writes each
+result in the caller's order. The kernels read each haplotype as one row of
+bytes: the pools' e (He, NH) is stored haplotype-major (ops/pairhmm.make_pools),
+and the wrappers pass it as it is.
+
+The copy-number HMM kernel (csrc/cnv_hmm.cu, wrapper `cnv_hmm`) runs the
+forward-backward pass of the gCNV denoising model; ops/cnv_hmm.py holds its
+plain version.
 """
 from __future__ import annotations
 
@@ -99,6 +103,7 @@ def library(name: str) -> ctypes.CDLL:
                 _libs[lib_name] = lib
             _bind_pairhmm(_libs["pairhmm_fwd"])
             _bind_pairhmm_matrix(_libs["pairhmm_matrix"])
+            _bind_cnv_hmm(_libs["cnv_hmm"])
         return _libs[name]
 
 
@@ -114,6 +119,12 @@ def _bind_pairhmm_matrix(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.pairhmm_matrix.restype = i
     lib.pairhmm_matrix.argtypes = [vp] * 10 + [i] * 4 + [vp]
+
+
+def _bind_cnv_hmm(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.cnv_hmm.restype = i
+    lib.cnv_hmm.argtypes = [vp] * 5 + [i] * 3 + [vp]
 
 
 def plan_groups(rows: torch.Tensor, hlen: torch.Tensor | None = None, hmax: int = 0):
@@ -282,3 +293,35 @@ def plan_on_card(pools, ri: torch.Tensor | None = None, hi: torch.Tensor | None 
                               n, nr, nh, kmax, torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, rc, what, f"n={n}")
     return scratch[:n], scratch[2 * n : 2 * n + len(GROUP_WIDTHS) + 1]
+
+
+CNV_HMM_MAX_STATES = 32  # csrc/cnv_hmm.cu: kMaxStates (one lane a state)
+
+
+def cnv_hmm(log_em: torch.Tensor, log_pi: torch.Tensor, stay: torch.Tensor) -> torch.Tensor:
+    """Launch the copy-number HMM forward-backward kernel (csrc/cnv_hmm.cu) on
+    PyTorch's current stream: (S, T, C) f32 log posteriors from log emissions
+    and log priors (S, T, C) and stay probabilities (T - 1,), all f32,
+    contiguous, on one CUDA device (ops/cnv_hmm.py states the model)."""
+    what = "cnv_hmm"
+    dev = log_em.device
+    _check(dev.type == "cuda", what, f"log_em is on {dev}, not a CUDA device")
+    _check(log_em.dim() == 3 and log_pi.shape == log_em.shape, what,
+           "log_em and log_pi must be (S, T, C) of one shape")
+    S, T, C = log_em.shape
+    _check(S > 0 and T > 0 and 0 < C <= CNV_HMM_MAX_STATES, what,
+           f"needs S, T > 0 and 1 <= C <= {CNV_HMM_MAX_STATES}: {(S, T, C)}")
+    _check(stay.shape == (T - 1,), what, f"stay must be (T - 1,) = ({T - 1},)")
+    for t in (log_em, log_pi, stay):
+        _check(t.dtype == torch.float32, what, "all operands must be float32")
+        _check(t.device == dev, what, f"all operands must be on {dev}")
+        _check(t.is_contiguous(), what, "all operands must be contiguous")
+    _check(log_em.numel() < 2 ** 31, what, "operands too large")
+    lib = library("cnv_hmm")
+    out = torch.empty_like(log_em)
+    beta = torch.empty_like(log_em)
+    with torch.cuda.device(dev):
+        rc = lib.cnv_hmm(log_em.data_ptr(), log_pi.data_ptr(), stay.data_ptr(), out.data_ptr(),
+                         beta.data_ptr(), S, T, C, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, rc, what, f"S={S}, T={T}, C={C}")
+    return out

@@ -46,6 +46,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..devices import resolve_device
+
 LN10 = math.log(10.0)
 LN2 = math.log(2.0)
 N_BASE = ord("N")
@@ -428,27 +430,6 @@ PAIR_VARIANTS = {
 # ---------------------------------------------------------------------------
 # Devices and device-to-host copies
 # ---------------------------------------------------------------------------
-
-_DEFAULT_DEVICE = torch.device("cuda")
-
-
-def set_default_device(device) -> None:
-    """Device for callers that pass none (hc_engine.compute_pairhmm_likelihoods on
-    the -ERC GVCF route, Mutect2Engine's PoolBatcher). hc_tool and mutect_tool set
-    it from --device; raises when that is CUDA and there is no card."""
-    global _DEFAULT_DEVICE
-    _DEFAULT_DEVICE = resolve_device(device)
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the module default; raises when that is CUDA and there is no card."""
-    dev = torch.device(device) if device is not None else _DEFAULT_DEVICE
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' (--device cpu on the "
-            "command line) to run the plain PyTorch PairHMM on the host")
-    return dev
-
 
 def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

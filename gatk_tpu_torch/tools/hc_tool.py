@@ -12,7 +12,7 @@ from ..calling import hc_engine
 from ..cli import UserError, register_tool, standard_io_parser
 from ..engine import intervals as iv
 from ..io import fasta, vcf
-from ..ops import pairhmm
+from .. import devices
 from ..utils.stopwatch import STAGES
 
 VCF_HEADER_LINES = [
@@ -119,8 +119,8 @@ def haplotype_caller(argv):
 
     # the device choice holds for every PairHMM caller, including the -ERC GVCF
     # route, which passes no device (hc_engine.compute_pairhmm_likelihoods)
-    pairhmm.set_default_device(args.device)
-    devices = [torch.device("cpu")] if args.device == "cpu" else None
+    devices.set_default_device(args.device)
+    shard_devices = [torch.device("cpu")] if args.device == "cpu" else None
 
     ref = fasta.FastaReference(args.reference)
     from ..io.cram import open_reads
@@ -183,7 +183,7 @@ def haplotype_caller(argv):
         engine.bamout = BamoutCollector(contig_ids)
     from ..parallel.scheduler import ShardedCaller
 
-    caller = ShardedCaller(engine, devices)  # round-robins regions over the devices
+    caller = ShardedCaller(engine, shard_devices)  # round-robins regions over the devices
 
     gvcf_mode = args.emit_ref_confidence == "GVCF"
     header_lines = list(VCF_HEADER_LINES)

@@ -8,7 +8,7 @@ from ..cli import register_tool
 from ..engine import intervals as iv
 from ..io import bam, fasta, vcf
 from ..mutect.engine import M2Args, Mutect2Engine
-from ..ops import pairhmm
+from .. import devices
 
 
 @register_tool("Mutect2")
@@ -41,7 +41,7 @@ def mutect2(argv):
                    help="where the PairHMM runs: the CUDA kernel, or its plain "
                         "PyTorch version on the host")
     args = p.parse_args(argv)
-    pairhmm.set_default_device(args.device)
+    devices.set_default_device(args.device)
 
     m2args = M2Args(
         mitochondria_mode=args.mitochondria_mode,

@@ -7,7 +7,13 @@ heterozygous alternate haplotype with planted SNVs and short indels, single-end
 reads drawn from both haplotypes).
 write_tumor_sample: a tumor-only sample for Mutect2 (the same contig and seed
 scheme, germline het SNVs plus somatic SNVs and short indels at allele
-fractions 0.1-0.3)."""
+fractions 0.1-0.3).
+write_cnv_cohort: a germline CNV cohort as read-count TSVs (CollectReadCounts'
+format) and contig-ploidy priors, with XX and XY samples and planted
+deletions and duplications.
+write_somatic_cnv_case: a panel of normals and a tumor case as read-count TSVs,
+and the case's allelic counts at het sites (CollectAllelicCounts' format), with
+planted copy-ratio segments and minor-allele fractions."""
 from __future__ import annotations
 
 import os
@@ -219,3 +225,270 @@ def write_tumor_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=200
     _write_bam(path, contig, length, reads, sample)
     return dict(fasta=fasta, bam=path, contig=contig, length=length, germline=germline,
                 somatic=somatic, n_reads=n_reads)
+
+
+# ---------------------------------------------------------------------------
+# Copy-number inputs
+# ---------------------------------------------------------------------------
+
+# (contig, share of the intervals, ploidy priors over 0..3): three autosomes,
+# X and Y, as in gcnvkernel's contig-ploidy prior tables
+_CNV_CONTIGS = (("1", 0.35, (0.01, 0.01, 0.97, 0.01)), ("2", 0.30, (0.01, 0.01, 0.97, 0.01)),
+                ("3", 0.20, (0.01, 0.01, 0.97, 0.01)), ("X", 0.10, (0.01, 0.49, 0.49, 0.01)),
+                ("Y", 0.05, (0.50, 0.50, 0.0, 0.0)))
+MAPPING_ERROR_RATE = 0.01  # reads a copy-number-0 interval still gets, per copy of depth
+BIN = 1000  # interval length (bp) of the CNV inputs: GATK's whole-genome bin
+
+
+def _contig_layout(n_intervals, contigs):
+    """[(contig, first, last)] interval index ranges, and (contig, start, end)
+    1-based bins of BIN bp per contig."""
+    sizes = [max(1, int(round(n_intervals * share))) for _, share, _ in contigs]
+    sizes[0] += n_intervals - sum(sizes)
+    ranges, intervals, first = [], [], 0
+    for (name, _, _), n in zip(contigs, sizes):
+        ranges.append((name, first, first + n - 1))
+        intervals += [(name, 1 + BIN * k, BIN * (k + 1)) for k in range(n)]
+        first += n
+    return ranges, intervals
+
+
+def _negbin(rng, mean, alpha):
+    """NegBin draws of mean `mean` and inverse dispersion alpha (Gamma-Poisson)."""
+    return rng.poisson(rng.gamma(alpha, mean / alpha))
+
+
+def _write_counts_tsv(path, sample, intervals, counts, sq):
+    with open(path, "w") as fh:
+        fh.write("".join(f"@SQ\tSN:{c}\tLN:{n}\n" for c, n in sq))
+        fh.write(f"@RG\tID:GATKCopyNumber\tSM:{sample}\nCONTIG\tSTART\tEND\tCOUNT\n")
+        fh.write("".join(f"{c}\t{s}\t{e}\t{n}\n" for (c, s, e), n in zip(intervals, counts)))
+
+
+def _place_events(rng, n_events, n_rows, free_ranges, length_range):
+    """n_events non-overlapping (row, first, last) spans, each inside one of
+    free_ranges [(first, last)] of one row, lengths drawn from length_range."""
+    taken = [[] for _ in range(n_rows)]
+    events = []
+    while len(events) < n_events:
+        row = int(rng.integers(0, n_rows))
+        lo, hi = free_ranges[int(rng.integers(0, len(free_ranges)))]
+        ln = int(rng.integers(length_range[0], length_range[1] + 1))
+        if hi - lo + 1 <= ln + 4:
+            continue
+        a = int(rng.integers(lo + 2, hi - ln - 1))
+        b = a + ln - 1
+        if any(a <= e + 2 and s <= b + 2 for s, e in taken[row]):
+            continue
+        taken[row].append((a, b))
+        events.append((row, a, b))
+    return events
+
+
+def write_cnv_cohort(out_dir, seed=0, n_samples=32, n_intervals=10000, n_events=40,
+                     event_len=(10, 100), factor_sd=0.3, bias_rank=5):
+    """Write a germline CNV cohort: <out_dir>/SAMPLE_<k>.counts.tsv for each
+    sample and <out_dir>/contig_ploidy_priors.tsv.
+
+    Intervals are 1 kb bins over three autosomes, X and Y (35, 30, 20, 10 and
+    5 % of them). Samples alternate XX and XY. A sample's count at interval t
+    is NegBin(d_s * exp(b_t + z_s . W_t) * (cn + 0.01)) with inverse dispersion
+    100: d_s its per-copy depth (50-150), b_t a lognormal per-interval bias (sd
+    0.3), z_s . W_t a sample x interval bias of rank bias_rank (z ~ N(0, 1),
+    W ~ N(0, factor_sd)) and 0.01 the mapping-error leak that a copy-number-0 interval
+    keeps. Deletions to CN 0 or 1 and duplications to CN 3 or 4, event_len
+    intervals long, are planted on the autosomes.
+
+    The bias has by default the rank of the denoising model's bias factors
+    (DenoisingConfig.max_bias_factors, 5): with fewer true factors than the
+    model's, gatk_tpu's model spends the spare ones during its warm-up rounds
+    on whole samples' events and then calls them at baseline
+    (tests/test_torch_cnv.py::test_gate_with_five_bias_factors shows both).
+
+    Returns dict(counts=[paths], ploidy_priors=path, samples, intervals,
+    contig_ranges=[(contig, first, last)], ploidy={sample: {contig: ploidy}},
+    cn=(S, T) planted copy numbers, baseline=(S, T) ploidies,
+    events=[(sample index, first, last, cn)])."""
+    rng = np.random.default_rng(seed)
+    ranges, intervals = _contig_layout(n_intervals, _CNV_CONTIGS)
+    samples = [f"SAMPLE_{k:03d}" for k in range(n_samples)]
+    ploidy, baseline = {}, np.zeros((n_samples, n_intervals), int)
+    for si, s in enumerate(samples):
+        xy = si % 2 == 1
+        ploidy[s] = {"1": 2, "2": 2, "3": 2, "X": 1 if xy else 2, "Y": 1 if xy else 0}
+        for name, a, b in ranges:
+            baseline[si, a : b + 1] = ploidy[s][name]
+    cn = baseline.copy()
+    autosomes = [(a, b) for name, a, b in ranges if name in ("1", "2", "3")]
+    events = []
+    for si, a, b in _place_events(rng, n_events, n_samples, autosomes, event_len):
+        c = int(rng.choice([0, 1, 3, 4]))
+        cn[si, a : b + 1] = c
+        events.append((si, a, b, c))
+    depth = rng.uniform(50.0, 150.0, n_samples)
+    bias = (rng.normal(0.0, 0.3, n_intervals)[None, :]
+            + rng.normal(0.0, 1.0, (n_samples, bias_rank))
+            @ rng.normal(0.0, factor_sd, (bias_rank, n_intervals)))
+    mean = depth[:, None] * np.exp(bias) * (cn + MAPPING_ERROR_RATE)
+    counts = _negbin(rng, mean, 100.0)
+
+    os.makedirs(out_dir, exist_ok=True)
+    sq = [(name, BIN * (b - a + 1)) for name, a, b in ranges]
+    paths = []
+    for si, s in enumerate(samples):
+        paths.append(os.path.join(out_dir, f"{s}.counts.tsv"))
+        _write_counts_tsv(paths[-1], s, intervals, counts[si], sq)
+    priors = os.path.join(out_dir, "contig_ploidy_priors.tsv")
+    with open(priors, "w") as fh:
+        fh.write("CONTIG_NAME\tPLOIDY_PRIOR_0\tPLOIDY_PRIOR_1\tPLOIDY_PRIOR_2\tPLOIDY_PRIOR_3\n")
+        fh.write("".join(f"{name}\t" + "\t".join(str(p) for p in pr) + "\n"
+                         for name, _, pr in _CNV_CONTIGS))
+    return dict(counts=paths, ploidy_priors=priors, samples=samples, intervals=intervals,
+                contig_ranges=ranges, ploidy=ploidy, cn=cn, baseline=baseline, events=events)
+
+
+def cnv_call_concordance(cohort, called_cn):
+    """Shares of the planted truth that (S, T) called copy numbers recover:
+    (share of planted event intervals called at their planted CN, share of
+    all other intervals called at their baseline ploidy)."""
+    called_cn = np.asarray(called_cn)
+    in_event = cohort["cn"] != cohort["baseline"]
+    hit = called_cn == cohort["cn"]
+    return float(hit[in_event].mean()), float(hit[~in_event].mean())
+
+
+# log2 copy ratio and minor-allele fraction of each planted somatic state
+_SOMATIC_STATES = {1: (-1.0, None), 2: (0.0, 0.5), 3: (float(np.log2(1.5)), 1.0 / 3.0),
+                   4: (1.0, 0.25)}
+
+
+def write_somatic_cnv_case(out_dir, seed=0, n_normals=40, n_intervals=50000, n_contigs=50,
+                           n_event_contigs=7, n_hets=10000):
+    """Write a panel of normals and a tumor case: <out_dir>/NORMAL_<k>.counts.tsv,
+    <out_dir>/case.counts.tsv and <out_dir>/case.allelic_counts.tsv.
+
+    The intervals are 1 kb bins over n_contigs contigs "1", "2", ... of equal
+    size. Every sample's count at interval t is
+    Poisson(200 * g_t * exp(u_s . F_t) * r_t) with g_t a lognormal
+    per-interval bias, u_s . F_t five latent batch factors (what the panel's
+    SVD has to learn) and r_t the copy ratio: 1 in the normals, in the
+    case cn / 2 of its planted segment. The first n_event_contigs contigs of
+    the case each hold three segments, copy-neutral (CN 2), altered (15-35 % of
+    the contig, at CN 1, 3 or 4, as many contigs lost as gained) and
+    copy-neutral again; the other contigs are copy-neutral, so the case's
+    median stays at copy-neutral. Het sites (n_hets, one per interval at most,
+    about 100 reads each) carry the minor allele on either haplotype at
+    the segment's minor-allele fraction (1/2 at CN 2, 1/3 at CN 3, 1/4 at CN 4);
+    a CN 1 segment has lost one haplotype, so its sites read as homozygous.
+
+    Returns dict(normals=[paths], case=path, allelic_counts=path,
+    normal_counts=(N, T), case_counts=(T,), intervals, sq=[(contig, length)],
+    event_contigs=[names], segments=[(first, last, cn, log2_cr, maf or None)],
+    het_index=(n_hets,))."""
+    rng = np.random.default_rng(seed)
+    ranges, intervals = _contig_layout(
+        n_intervals, [(str(k + 1), 1.0 / n_contigs, None) for k in range(n_contigs)])
+    altered = [1 if k % 2 == 0 else int(rng.choice([3, 4])) for k in range(n_event_contigs)]
+    segments = []
+    for k, (_, first, last) in enumerate(ranges):
+        if k >= n_event_contigs:
+            segments.append((first, last, 2) + _SOMATIC_STATES[2])
+            continue
+        n = last - first + 1
+        ln = int(n * rng.uniform(0.15, 0.35))
+        a = first + int(rng.integers(n // 10, n - ln - n // 10))
+        for lo, hi, cn in ((first, a - 1, 2), (a, a + ln - 1, altered[k]), (a + ln, last, 2)):
+            segments.append((lo, hi, cn) + _SOMATIC_STATES[cn])
+    ratio = np.ones(n_intervals)
+    for a, b, cn, _, _ in segments:
+        ratio[a : b + 1] = cn / 2.0
+
+    bias = np.exp(rng.normal(0.0, 0.3, n_intervals))
+    factors = rng.normal(0.0, 0.15, (5, n_intervals))
+
+    def sample_counts(r):
+        return rng.poisson(200.0 * bias * np.exp(rng.normal(0.0, 1.0, 5) @ factors) * r)
+
+    normals = np.stack([sample_counts(np.ones(n_intervals)) for _ in range(n_normals)])
+    case = sample_counts(ratio)
+
+    os.makedirs(out_dir, exist_ok=True)
+    sq = [(name, BIN * (b - a + 1)) for name, a, b in ranges]
+    normal_paths = []
+    for k in range(n_normals):
+        normal_paths.append(os.path.join(out_dir, f"NORMAL_{k:03d}.counts.tsv"))
+        _write_counts_tsv(normal_paths[-1], f"NORMAL_{k:03d}", intervals, normals[k], sq)
+    case_path = os.path.join(out_dir, "case.counts.tsv")
+    _write_counts_tsv(case_path, "CASE", intervals, case, sq)
+
+    het_index = np.sort(rng.choice(n_intervals, n_hets, replace=False))
+    seg_of = np.searchsorted([a for a, *_ in segments], het_index, side="right") - 1
+    rows = []
+    for t, k in zip(het_index.tolist(), seg_of.tolist()):
+        maf = segments[k][4]
+        n = int(rng.poisson(100))
+        if maf is None:  # one haplotype lost: every read carries the other one
+            alt = n if rng.random() < 0.5 else 0
+        else:
+            alt = int(rng.binomial(n, maf if rng.random() < 0.5 else 1.0 - maf))
+        c, s, e = intervals[t]
+        ref_base, alt_base = _ACGT[rng.permutation(4)[:2]]
+        rows.append(f"{c}\t{s + (e - s) // 2}\t{n - alt}\t{alt}\t"
+                    f"{chr(ref_base)}\t{chr(alt_base)}\n")
+    allelic = os.path.join(out_dir, "case.allelic_counts.tsv")
+    with open(allelic, "w") as fh:
+        fh.write("@HD\tVN:1.6\n" + "".join(f"@SQ\tSN:{c}\tLN:{n}\n" for c, n in sq))
+        fh.write("@RG\tID:GATKCopyNumber\tSM:CASE\n")
+        fh.write("CONTIG\tPOSITION\tREF_COUNT\tALT_COUNT\tREF_NUCLEOTIDE\tALT_NUCLEOTIDE\n")
+        fh.write("".join(rows))
+    return dict(normals=normal_paths, case=case_path, allelic_counts=allelic,
+                normal_counts=normals, case_counts=case, intervals=intervals, sq=sq,
+                event_contigs=[name for name, _, _ in ranges[:n_event_contigs]],
+                segments=segments, het_index=het_index)
+
+
+BREAKPOINT_TOLERANCE = 3  # intervals between a planted breakpoint and a found one
+MIN_SEGMENT_POINTS = 10  # points of a kind a segment needs for its median to be scored
+
+
+def score_somatic_segments(case, model_rows):
+    """ModelSegments' segments (the rows of its .modelFinal.seg, as strings)
+    against write_somatic_cnv_case's planted truth: the planted breakpoints
+    (a segment's first interval, inside a contig) that no modelled segment
+    starts within BREAKPOINT_TOLERANCE intervals of, and the largest distance
+    of a posterior median (log2 copy ratio; minor-allele fraction) from the
+    planted value of the segment it overlaps most, over the modelled segments
+    that hold at least MIN_SEGMENT_POINTS points of that kind, with the
+    segment that sets each (log2_cr_worst, maf_worst)."""
+    import bisect
+
+    starts, first = {}, {}
+    for k, (c, s, _) in enumerate(case["intervals"]):
+        starts.setdefault(c, []).append(s)
+        first.setdefault(c, k)
+
+    def index(contig, pos):
+        return first[contig] + max(bisect.bisect_right(starts[contig], pos) - 1, 0)
+
+    planted = case["segments"]
+    contig_of = [case["intervals"][a][0] for a, *_ in planted]
+    breakpoints = [a for k, (a, *_) in enumerate(planted)
+                   if k and contig_of[k] == contig_of[k - 1]]
+    spans = [(index(r[0], int(r[1])), index(r[0], int(r[2])), r) for r in model_rows]
+    found = sorted(i0 for i0, _, _ in spans)
+    missed = [b for b in breakpoints
+              if not found or min(abs(f - b) for f in found) > BREAKPOINT_TOLERANCE]
+    cr_err, maf_err, cr_worst, maf_worst = 0.0, 0.0, None, None
+    for i0, i1, r in spans:
+        overlap = [max(0, min(i1, b) - max(i0, a) + 1) for a, b, *_ in planted]
+        _, _, cn, log2_cr, maf = planted[int(np.argmax(overlap))]
+        where = dict(contig=r[0], start=int(r[1]), end=int(r[2]), planted_cn=cn)
+        if int(r[3]) >= MIN_SEGMENT_POINTS and abs(float(r[6]) - log2_cr) > cr_err:
+            cr_err = abs(float(r[6]) - log2_cr)
+            cr_worst = dict(where, points=int(r[3]), median=float(r[6]), planted=log2_cr)
+        if int(r[4]) >= MIN_SEGMENT_POINTS and maf is not None and abs(float(r[9]) - maf) > maf_err:
+            maf_err = abs(float(r[9]) - maf)
+            maf_worst = dict(where, points=int(r[4]), median=float(r[9]), planted=maf)
+    return dict(breakpoints=len(breakpoints), breakpoints_missed=missed, segments=len(model_rows),
+                log2_cr_max_err=cr_err, maf_max_err=maf_err, log2_cr_worst=cr_worst,
+                maf_worst=maf_worst)

@@ -1,5 +1,5 @@
-"""The hand-written PairHMM kernels (gatk_tpu_torch/csrc/pairhmm_fwd.cu and
-csrc/pairhmm_matrix.cu) on the card.
+"""The hand-written kernels (gatk_tpu_torch/csrc/pairhmm_fwd.cu,
+csrc/pairhmm_matrix.cu and csrc/cnv_hmm.cu) on the card.
 
 Every test here needs a CUDA device: the kernels have no CPU mode, so without a
 card they skip. The file imports neither jax nor gatk_tpu, so it also runs where
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gatk_tpu_torch.ops import pairhmm
+from gatk_tpu_torch.ops import cnv_hmm, pairhmm
 
 pytestmark = pytest.mark.cuda
 
@@ -312,3 +312,58 @@ def test_plan_kernels_order_as_the_plain_plan(cuda_device, reads_only):
         keys.insert(3, hlen.long())
     for k in keys:
         assert torch.equal(k[got_perm], k[want_perm])
+
+
+HMM_TOL = 1e-4  # max |log posterior kernel - plain|
+
+
+def _hmm_inputs(rng, S, T, C, stay, device):
+    """Log emissions around -5, per-sample priors with p_alt 1e-6 off a
+    baseline state, and the given stay probabilities, on the device."""
+    log_em = rng.normal(-5.0, 3.0, (S, T, C))
+    base = rng.integers(0, C, (S, 1, 1))
+    pi = np.where(np.arange(C)[None, None, :] == base, 1.0 - (C - 1) * 1e-6, 1e-6)
+    log_pi = np.broadcast_to(np.log(pi), (S, T, C))
+    return [torch.tensor(np.ascontiguousarray(a, np.float32), device=device)
+            for a in (log_em, log_pi, stay)]
+
+
+@pytest.mark.parametrize("S,T,C,stay", [
+    (32, 10000, 6, "coherent"),  # a GermlineCNVCaller shard, with chain breaks
+    (3, 1, 6, "none"),  # one interval: no transition
+    (4, 50, 6, "break"),  # a chain break at every interval (stay 0)
+    (4, 50, 6, "one"),  # stay 1: off-diagonal log transitions are -inf
+    (5, 37, 32, "coherent"),  # one state on every lane
+    (2, 9, 1, "coherent"),
+])
+def test_cnv_hmm_kernel_matches_plain(cuda_device, S, T, C, stay):
+    rng = np.random.default_rng(S * T + C)
+    stays = {"coherent": np.exp(-rng.uniform(500, 3000, T - 1) / 10000.0),
+             "break": np.zeros(T - 1), "one": np.ones(T - 1), "none": np.zeros(0)}[stay]
+    if stay == "coherent":
+        stays[rng.integers(0, T - 1, T // 2000)] = 0.0
+    args = _hmm_inputs(rng, S, T, C, stays, cuda_device)
+    before = (cnv_hmm.hmm_forward_backward.launches, cnv_hmm.hmm_forward_backward.cells)
+    got = cnv_hmm.hmm_forward_backward(*args)
+    assert (cnv_hmm.hmm_forward_backward.launches, cnv_hmm.hmm_forward_backward.cells) == (
+        before[0] + 1, before[1] + S * T * C)
+    want = cnv_hmm.hmm_forward_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (S, T, C) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= HMM_TOL
+
+
+def test_cnv_hmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from gatk_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(3)
+    em, lp, stay = _hmm_inputs(rng, 2, 10, 6, np.full(9, 0.9), cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        _kernels.cnv_hmm(em.double(), lp.double(), stay.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.cnv_hmm(em.transpose(0, 1).contiguous().transpose(0, 1), lp, stay)
+    with pytest.raises(ValueError, match="stay"):
+        _kernels.cnv_hmm(em, lp, stay[:5])
+    with pytest.raises(ValueError, match="C <= 32"):
+        big = torch.zeros((2, 10, 33), device=cuda_device)
+        _kernels.cnv_hmm(big, big, stay)

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port (gatk_tpu_torch) that hold whatever it computes:
 it imports neither jax nor gatk_tpu, its copies of gatk_tpu's host modules stay
-verbatim, and its entry points refuse to fall back to the CPU without a card."""
+verbatim (cnv/somatic.py but for build_panel_of_normals), and its entry points
+refuse to fall back to the CPU without a card."""
 import ast
 import json
 import os
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import gatk_tpu_torch
+from gatk_tpu_torch import devices
 from gatk_tpu_torch.ops import pairhmm
 from gatk_tpu_torch.parallel import scheduler
 
@@ -55,7 +57,7 @@ def test_port_imports_neither_jax_nor_gatk_tpu():
 
 
 def test_every_module_named_in_a_header_is_copied():
-    assert len(_copied_files()) == 64
+    assert len(_copied_files()) == 68
 
 
 def _is_import(node):
@@ -71,7 +73,7 @@ def _import_lines(src):
 
 
 # the lines a copy may change beyond its imports: the PairHMM module's name at
-# its uses, and the Mutect2 --device flag
+# its uses, and the --device flags
 RENAMED = {"calling/hc_engine.py": (18, 332, 407, 518, 549),
            "mutect/engine.py": (23, 158, 197, 232)}
 MUTECT2_DEVICE_FLAG = [
@@ -79,22 +81,51 @@ MUTECT2_DEVICE_FLAG = [
     '                   help="where the PairHMM runs: the CUDA kernel, or its plain "\n',
     '                        "PyTorch version on the host")\n',
 ]
+GCNV_DEVICE_FLAG = [
+    '    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",\n',
+    '                   help="where the denoising model and its copy-number HMM run: the "\n',
+    '                        "CUDA kernel, or the plain PyTorch version on the host")\n',
+]
+PON_DEVICE_FLAG = [
+    '    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",\n',
+    '                   help="where the panel\'s SVD runs: the CUDA device or the host")\n',
+]
+MODEL_SEGMENTS_DEVICE_FLAG = [
+    '    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",\n',
+    '                   help="where the slice-sampling chains run: the CUDA device or the host")\n',
+]
+# copy -> [(line of the tool's parse_args in the original, the flag's lines)]:
+# each flag goes before that line, and devices.set_default_device(args.device)
+# after it
+DEVICE_FLAGS = {
+    "tools/mutect_tool.py": [(38, MUTECT2_DEVICE_FLAG)],
+    "tools/cnv_tools.py": [(72, GCNV_DEVICE_FLAG)],
+    "tools/somatic_cnv_tools.py": [(326, PON_DEVICE_FLAG), (452, MODEL_SEGMENTS_DEVICE_FLAG)],
+}
+
+# copy -> (n, the start of the original's line n + 1): where a tool with a
+# --device flag imports the devices module
+DEVICES_IMPORT = {"tools/mutect_tool.py": (9, "\n"),
+                  "tools/cnv_tools.py": (9, "from ..cli import"),
+                  "tools/somatic_cnv_tools.py": (15, "from ..cli import")}
 
 
 def _expected_changes(copy, original):
     """The source as its copy must read, apart from import lines."""
     lines = original.splitlines(keepends=True)
-    for n in RENAMED.get(os.path.relpath(copy, "gatk_tpu_torch"), ()):
+    rel = os.path.relpath(copy, "gatk_tpu_torch")
+    for n in RENAMED.get(rel, ()):
         assert "pairhmm_tpu" in lines[n - 1]
         lines[n - 1] = lines[n - 1].replace("pairhmm_tpu", "pairhmm")
-    if copy.endswith("tools/mutect_tool.py"):
-        # mutect_tool.py:38 parses Mutect2's flags: --device is added before it
-        # and applied after it; the import goes after :9
-        assert lines[37] == "    args = p.parse_args(argv)\n"
-        lines[38:38] = ["    pairhmm.set_default_device(args.device)\n"]
-        lines[37:37] = MUTECT2_DEVICE_FLAG
-        assert lines[8].startswith("from ..mutect.engine import")
-        lines[9:9] = ["from ..ops import pairhmm\n"]
+    for n, flag in sorted(DEVICE_FLAGS.get(rel, ()), reverse=True):
+        assert lines[n - 1] == "    args = p.parse_args(argv)\n"
+        lines[n:n] = ["    devices.set_default_device(args.device)\n"]
+        lines[n - 1:n - 1] = flag
+    if rel in DEVICES_IMPORT:
+        # the import of the devices module goes after the original's line n
+        n, before = DEVICES_IMPORT[rel]
+        assert lines[n].startswith(before)
+        lines[n:n] = ["from .. import devices\n"]
     return "".join(lines)
 
 
@@ -115,6 +146,27 @@ def test_copied_module_is_verbatim(copy):
     assert diff == []
 
 
+def _top_level_blocks(src, skip):
+    """The source of each top-level statement but imports and the function
+    named `skip`, and the module docstring, in order."""
+    tree = ast.parse(src)
+    return [ast.get_source_segment(src, node) for node in tree.body
+            if not _is_import(node) and getattr(node, "name", None) != skip]
+
+
+def test_somatic_is_a_copy_but_for_the_panel_svd():
+    """cnv/somatic.py is gatk_tpu's but for its import lines and
+    build_panel_of_normals, whose SVD runs in PyTorch on a device."""
+    with open(os.path.join(PORT, "cnv", "somatic.py")) as fh:
+        header, body = fh.readline(), fh.read()
+    assert header.startswith("# Copied from gatk_tpu/cnv/somatic.py;")
+    with open(os.path.join(ROOT, "gatk_tpu", "cnv", "somatic.py")) as fh:
+        original = fh.read()
+    skip = "build_panel_of_normals"
+    assert _top_level_blocks(body, skip) == _top_level_blocks(original, skip)
+    assert "torch.linalg.svd" in body and "jax" not in body
+
+
 def test_sharded_caller_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -125,13 +177,13 @@ def test_sharded_caller_raises_without_a_card(monkeypatch):
 
 def test_pairhmm_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(pairhmm, "_DEFAULT_DEVICE", torch.device("cuda"))
+    monkeypatch.setattr(devices, "_DEFAULT_DEVICE", torch.device("cuda"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pairhmm.PoolBatcher()
     reads = [dict(bases=b"ACGT", rq=[30] * 4, iq=[45] * 4, dq=[45] * 4, gcp=[10] * 4)]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pairhmm.compute_likelihood_matrix(reads, [b"ACGTACGT"])
-    pairhmm.set_default_device("cpu")
+    devices.set_default_device("cpu")
     assert pairhmm.compute_likelihood_matrix(reads, [b"ACGTACGT"]).shape == (1, 1)
 
 
@@ -141,13 +193,13 @@ def test_mutect2_on_cuda_raises_without_a_card(monkeypatch, tmp_path):
     from gatk_tpu_torch import cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(pairhmm, "_DEFAULT_DEVICE", torch.device("cuda"))
+    monkeypatch.setattr(devices, "_DEFAULT_DEVICE", torch.device("cuda"))
     argv = ["Mutect2", "-I", str(tmp_path / "missing.bam"), "-R", str(tmp_path / "missing.fa"),
             "-O", str(tmp_path / "out.vcf")]
     for extra in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv + extra)
-    assert pairhmm._DEFAULT_DEVICE == torch.device("cuda")
+    assert devices._DEFAULT_DEVICE == torch.device("cuda")
     assert cli.main(argv + ["--device", "cpu"]) == 2  # gets as far as the missing files
     assert not (tmp_path / "out.vcf").exists()
 
@@ -162,3 +214,34 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     idx = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="not a CUDA device"):
         _kernels.pairhmm_fwd(pools, idx, idx)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("GermlineCNVCaller", ["-I", "{d}/missing.tsv", "--contig-ploidy-calls", "{d}/calls",
+                           "-O", "{d}/out"]),
+    ("CreateReadCountPanelOfNormals", ["-I", "{d}/missing.tsv", "-O", "{d}/pon.hdf5"]),
+    ("ModelSegments", ["--denoised-copy-ratios", "{d}/missing.tsv", "-O", "{d}/out",
+                       "--output-prefix", "case"]),
+])
+def test_cnv_tools_on_cuda_raise_without_a_card(monkeypatch, tmp_path, tool, argv):
+    """--device cuda (the default) refuses to start without a card, through the
+    CLI, before the tool reads its inputs; --device cpu gets past that point
+    (as far as the missing input)."""
+    from gatk_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(devices, "_DEFAULT_DEVICE", torch.device("cuda"))
+    argv = [tool] + [a.format(d=tmp_path) for a in argv]
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv + extra)
+    assert cli.main(argv + ["--device", "cpu"]) == 2  # the missing input
+    assert devices._DEFAULT_DEVICE == torch.device("cpu")
+
+
+def test_cnv_hmm_wrapper_refuses_cpu_tensors():
+    from gatk_tpu_torch.ops import _kernels
+
+    x = torch.zeros((2, 3, 6))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        _kernels.cnv_hmm(x, x, torch.zeros(2))
