@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gatk_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--hmm-baseline CNV_HMM_CU]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card, its power limit, the kernel builds, the native host libraries
@@ -39,10 +39,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
            fit's posterior passes, ADAM steps and scale steps, and from a
            profiled second GermlineCNVCaller run their launches and the device
            idle share
-  cnv_hmm  the copy-number HMM kernel (csrc/cnv_hmm.cu) against its plain
-           version on the gcnv run's fitted shard and on an edge batch (one
-           interval, a chain break at every interval, stay 1, 32 states);
-           timed beside its bound
+  cnv_hmm  the copy-number HMM kernels (csrc/cnv_hmm.cu, a chunked pass) on the
+           gcnv run's fitted shard and on edge batches (one interval, a chain
+           break at every interval, stay 1, 32 states, 1 state, and the
+           chunks' edges), against the float64 and float32 sequential plain
+           versions and the chunked plain version (HMM_TOL_*); timed beside
+           its bound, at every chunk of a sweep, profiled by kernel, and with
+           --hmm-baseline CNV_HMM_CU in turns with an earlier kernel
   somatic_cnv  a panel of 40 normals x 50,000 intervals built in-process, its SVD
            on the card, a tumor case denoised against it, then ModelSegments
            --device cuda (all 50 contigs, 10,000 het sites) and
@@ -146,8 +149,8 @@ def reset_counts():
 
 
 def read_counts():
-    return {name: dict(launches=e.launches, **({"cells": e.cells} if hasattr(e, "cells") else
-                                               {"pairs": e.pairs}))
+    return {name: dict(launches=e.launches, **({"passes": e.passes, "cells": e.cells}
+                                               if hasattr(e, "cells") else {"pairs": e.pairs}))
             for name, e in _entries().items()}
 
 
@@ -905,7 +908,22 @@ SOMATIC_CASE = dict(seed=0, n_normals=40, n_intervals=50000, n_contigs=50, n_eve
                     n_hets=10000)
 GCNV_EVENT_SHARE, GCNV_BASELINE_SHARE = 0.95, 0.99
 SOMATIC_CR_TOL, SOMATIC_MAF_TOL = 0.1, 0.05  # |posterior median - planted|
-HMM_TOL = 1e-4  # max |log posterior kernel - plain|
+# the HMM kernel's log posteriors: within HMM_TOL_F64 of the float64
+# sequential plain version; within the float32 sequential plain version's own
+# distance from float64 plus HMM_TOL_F64 of that version (the two associate
+# the sums otherwise: a chunked pass never forms the |4e4| log joints whose
+# float32 rounding step is 0.004); within HMM_TOL_CHUNKED plus HMM_CHUNKED_ULPS
+# float32 rounding steps of the value of the plain version of the kernel's
+# own association (a log posterior of a state far from the data reaches -6e3
+# on the fitted shard, where one float32 rounding step is 4.9e-4, and the two
+# round the same sum of nearly equal terms); and the same argmax state as
+# float64 wherever float64's top two states differ by more than HMM_ARGMAX_GAP
+HMM_TOL_F64 = 1e-3
+HMM_TOL_CHUNKED = 1e-4
+HMM_CHUNKED_ULPS = 2
+HMM_ARGMAX_GAP = 0.1
+HMM_CHUNK_SWEEP = (32, 64, 96, 128, 160, 192, 256)
+HMM_KERNELS = ("log_stay_kernel", "transfer_kernel", "starts_kernel", "posterior_kernel")
 PLAIN_PROFILED = 500  # intervals of the plain HMM whose launches are counted
 
 
@@ -1026,16 +1044,25 @@ def _hmm_bound(S, T, C):
                 ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
 
 
-def _hmm_edge_cases(dev):
+def _hmm_edge_cases(dev, chunk):
     """(name, log_em, log_pi, stay) at the kernel's edges: one interval, a
     chain break at every interval (stay 0), stay 1 (off-diagonal log
-    transitions -inf), and one state on every lane (C = 32)."""
+    transitions -inf), one state on every lane (C = 32) and one state (C = 1);
+    then the chunks' edges: T = L, L + 1, 2 L + 1 and a T - 1 that is not a
+    multiple of L (L = chunk)."""
     rng = np.random.default_rng(11)
     out = []
     for name, S, T, C, stay in (("T=1", 4, 1, 6, np.zeros(0)), ("break everywhere", 4, 64, 6, 0.0),
-                                ("stay=1", 4, 64, 6, 1.0), ("C=32", 3, 64, 32, 0.9)):
+                                ("stay=1", 4, 64, 6, 1.0), ("C=32", 3, 64, 32, 0.9),
+                                ("C=1", 2, 64, 1, 0.9), ("T=L", 4, chunk, 6, None),
+                                ("T=L+1", 4, chunk + 1, 6, None),
+                                ("T=2L+1", 4, 2 * chunk + 1, 6, None),
+                                ("T=1000", 4, 1000, 6, None), ("C=13, T=700", 3, 700, 13, None)):
         base = rng.integers(0, C, (S, 1, 1))
         pi = np.where(np.arange(C)[None, None, :] == base, 1.0 - (C - 1) * 1e-6, 1e-6)
+        if stay is None:  # coherent, as on the shard, with a chain break
+            stay = np.exp(-rng.uniform(500, 3000, T - 1) / 10000.0)
+            stay[rng.integers(0, T - 1)] = 0.0
         arrays = (rng.normal(-5.0, 3.0, (S, T, C)), np.broadcast_to(np.log(pi), (S, T, C)),
                   np.broadcast_to(stay, (max(T - 1, 0),)))
         out.append((name, *(torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
@@ -1043,36 +1070,89 @@ def _hmm_edge_cases(dev):
     return out
 
 
+def _ulp(x):
+    """The float32 rounding step at each value of x (finite, float32)."""
+    a = x.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def _hmm_errors(got, args, chunk):
+    """The kernel's log posteriors against the three plain versions on the
+    same inputs: the float64 and float32 sequential passes and the chunked
+    plain version at the same chunk; and its argmax against float64's where
+    float64's top two states differ by more than HMM_ARGMAX_GAP."""
+    from gatk_tpu_torch.ops import cnv_hmm
+
+    want64 = cnv_hmm.hmm_forward_backward_reference(*(a.double() for a in args))
+    want32 = cnv_hmm.hmm_forward_backward_reference(*args)
+    chunked = cnv_hmm.hmm_forward_backward_chunked_reference(*args, chunk=chunk)
+    top2 = want64.topk(min(2, want64.shape[-1]), dim=-1).values
+    clear = (top2[..., 0] - top2[..., -1] > HMM_ARGMAX_GAP) if want64.shape[-1] > 1 else \
+        torch.ones(want64.shape[:-1], dtype=torch.bool, device=want64.device)
+    return dict(finite=bool(torch.isfinite(got).all()),
+                max_abs_err_f64=(got.double() - want64).abs().max().item(),
+                max_abs_err_plain=(got - want32).abs().max().item(),
+                plain_err_f64=(want32.double() - want64).abs().max().item(),
+                max_abs_err_chunked=(got - chunked).abs().max().item(),
+                chunked_excess=((got - chunked).abs() - HMM_CHUNKED_ULPS * _ulp(chunked)
+                                ).max().item(),
+                chunked_err_f64=(chunked.double() - want64).abs().max().item(),
+                argmax_checked=int(clear.sum()),
+                argmax_differs=int((got.argmax(-1) != want64.argmax(-1))[clear].sum()))
+
+
+def _hmm_check(name, e):
+    check(e["finite"], f"HMM kernel: non-finite log posteriors at {name}")
+    check(e["max_abs_err_f64"] <= HMM_TOL_F64,
+          f"HMM kernel at {name}: {e['max_abs_err_f64']} from float64 > {HMM_TOL_F64}")
+    check(e["max_abs_err_plain"] <= e["plain_err_f64"] + HMM_TOL_F64,
+          f"HMM kernel at {name}: {e['max_abs_err_plain']} from the float32 plain version > "
+          f"{e['plain_err_f64']} + {HMM_TOL_F64}")
+    check(e["chunked_excess"] <= HMM_TOL_CHUNKED,
+          f"HMM kernel at {name}: |kernel - chunked plain| less {HMM_CHUNKED_ULPS} float32 "
+          f"steps of the chunked plain value = {e['chunked_excess']} > {HMM_TOL_CHUNKED}")
+    check(e["argmax_differs"] == 0,
+          f"HMM kernel at {name}: {e['argmax_differs']} argmax states differ from float64's")
+
+
 def phase_cnv_hmm(dev, model):
-    """The HMM kernel against its plain version on the card, on the posterior
-    pass of the gcnv run's fitted shard and on the edge batch; timed beside its
-    bound."""
+    """The HMM kernel on the posterior pass of the gcnv run's fitted shard and
+    on the edge batches, against the float64 and float32 sequential plain
+    versions and the chunked plain version; timed beside its bound, at every
+    chunk of HMM_CHUNK_SWEEP, and profiled by kernel."""
     from gatk_tpu_torch.ops import _kernels, cnv_hmm
 
+    chunk = _kernels.CNV_HMM_CHUNK
     with torch.no_grad():
         log_em = model._emission(model.params).contiguous()
         log_pi, stay = model._prior_and_trans()
     args = (log_em, log_pi.contiguous(), stay.contiguous())
     S, T, C = log_em.shape
-    got = _kernels.cnv_hmm(*args)
+    got, launches_per_pass = _kernels.cnv_hmm_launch(*args)
+    shard = _hmm_errors(got, args, chunk)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    want = cnv_hmm.hmm_forward_backward_reference(*args)
+    cnv_hmm.hmm_forward_backward_reference(*args)
     t1.record()
     t1.synchronize()
     plain_ms = t0.elapsed_time(t1)  # one call: the plain version takes seconds
-    check(torch.isfinite(got).all(), "HMM kernel: non-finite log posteriors on the shard")
-    err_shard = (got - want).abs().max().item()
-    equal_share = (got == want).float().mean().item()
+    chunked_plain_ms = median_ms(
+        lambda: cnv_hmm.hmm_forward_backward_chunked_reference(*args, chunk=chunk), reps=3,
+        warmup=1)
     edges = []
-    for name, *edge in _hmm_edge_cases(dev):
-        g, w = _kernels.cnv_hmm(*edge), cnv_hmm.hmm_forward_backward_reference(*edge)
-        check(torch.isfinite(g).all(), f"HMM kernel: non-finite log posteriors at {name}")
+    for name, *edge in _hmm_edge_cases(dev, chunk):
         edges.append(dict(case=name, shape=list(edge[0].shape),
-                          max_abs_err=(g - w).abs().max().item()))
+                          **_hmm_errors(_kernels.cnv_hmm(*edge), edge, chunk)))
     kernel_ms = median_ms(lambda: _kernels.cnv_hmm(*args), reps=30, warmup=3)
-    err = max(err_shard, *(e["max_abs_err"] for e in edges))
+    sweep = {L: median_ms(lambda: _kernels.cnv_hmm(*args, chunk=L), reps=20, warmup=3)
+             for L in HMM_CHUNK_SWEEP}
+    reps = 10
+    prof = _profile(lambda: [_kernels.cnv_hmm(*args) for _ in range(reps)],
+                    kernels={k: [k] for k in HMM_KERNELS})
+    by_kernel = {k: prof[f"device_{k}_ms"] / reps if isinstance(prof[f"device_{k}_ms"], float)
+                 else "not measured" for k in HMM_KERNELS}
+    profiled = prof["profiled_launches"]
     # the launches the kernel replaces: the plain version's on the shard's first
     # PLAIN_PROFILED intervals (a fixed number each), scaled to the pass
     n = min(T, PLAIN_PROFILED)
@@ -1081,15 +1161,24 @@ def phase_cnv_hmm(dev, model):
     plain_launches = plain["profiled_launches"]
     per_pass = (round(plain_launches * T / n) if isinstance(plain_launches, int)
                 else "not measured")
-    res = dict(phase="cnv_hmm", samples=S, intervals=T, states=C, max_abs_err_shard=err_shard,
-               bitwise_equal_share=equal_share, edges=edges, max_abs_err=err, kernel_ms=kernel_ms,
-               plain_ms=plain_ms, plain_launches_profiled=plain_launches,
+    err = max([shard["max_abs_err_chunked"]] + [e["max_abs_err_chunked"] for e in edges])
+    res = dict(phase="cnv_hmm", samples=S, intervals=T, states=C, chunk=chunk,
+               launches_per_pass=launches_per_pass,
+               profiled_launches_per_pass=(profiled / reps if isinstance(profiled, int)
+                                           else "not measured"),
+               dependent_steps=_kernels.cnv_hmm_dependent_steps(T, chunk), shard=shard,
+               edges=edges, max_abs_err=err, kernel_ms=kernel_ms, kernel_ms_by_chunk=sweep,
+               device_ms_by_kernel=by_kernel, plain_ms=plain_ms,
+               chunked_plain_ms=chunked_plain_ms, plain_launches_profiled=plain_launches,
                plain_intervals_profiled=n, plain_launches_per_pass=per_pass,
-               step_us=kernel_ms * 1e3 / T, **_hmm_bound(S, T, C),
-               latency_note=f"{T} dependent steps a direction set the kernel's time; the bound "
-                            "assumes no step waits on the one before")
+               step_us=kernel_ms * 1e3 / _kernels.cnv_hmm_dependent_steps(T, chunk),
+               **_hmm_bound(S, T, C),
+               latency_note="dependent steps per direction (2 L + P) set the kernel's time; "
+                            "the bound assumes no step waits on the one before")
     emit(res)
-    check(err <= HMM_TOL, f"HMM kernel: max |kernel - plain| = {err} > {HMM_TOL}")
+    _hmm_check("the shard", shard)
+    for e in edges:
+        _hmm_check(e["case"], e)
     return res
 
 
@@ -1261,7 +1350,12 @@ def main():
              replaces="gatk_tpu/cnv/denoising.py:42 (_hmm_forward_backward under lax.scan; "
                       "not a Pallas kernel)",
              launches=gcnv["counts"]["cnv_hmm"]["launches"], launches_by_path=by_path("cnv_hmm"),
-             max_abs_err=hmm["max_abs_err"], ms=hmm["kernel_ms"], plain_ms=hmm["plain_ms"],
+             launches_per_pass=(gcnv["counts"]["cnv_hmm"]["launches"]
+                                / gcnv["counts"]["cnv_hmm"]["passes"]),
+             max_abs_err=hmm["max_abs_err"],
+             max_abs_err_f64=max([hmm["shard"]["max_abs_err_f64"]]
+                                 + [e["max_abs_err_f64"] for e in hmm["edges"]]),
+             ms=hmm["kernel_ms"], plain_ms=hmm["plain_ms"],
              bound_ms=hmm["bound_ms"], bound_by=hmm["bound_by"], library_ms=None),
     ]
     for kd in kernels:

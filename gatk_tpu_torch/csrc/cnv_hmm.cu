@@ -3,195 +3,509 @@
 // Computes what gatk_tpu/cnv/denoising.py:_hmm_forward_backward (:42-67)
 // computes under lax.scan, with the transitions that
 // GermlineDenoisingModel._posteriors (:140-149) builds, for S samples in one
-// launch: the log posteriors out (S, T, C) of copy-number state c at interval
-// t, given log emissions log_em (S, T, C), log priors log_pi (S, T, C) and the
-// stay probabilities stay (T - 1,) that all samples share. The transition out
-// of interval t is
-//   tr_t(c, c') = log(stay[t] * [c == c'] + (1 - stay[t]) * exp(log_pi[t + 1][c'])).
-// gatk_tpu has no Pallas kernel here: this kernel takes the place of an eager
-// PyTorch loop of T dependent steps a direction, each several kernel launches.
+// pass: the log posteriors out (S, T, C) of copy-number state c at interval
+// t, given log emissions log_em (S, T, C), log priors log_pi (S, T, C) and
+// the stay probabilities stay (T - 1,) that all samples share. The transition
+// out of interval t is
+//   tr_t(c, c') = log(stay[t] * [c == c'] + (1 - stay[t]) * exp(log_pi[t + 1][c'])),
+// a diagonal plus a rank-one matrix. gatk_tpu has no Pallas kernel here: the
+// pass takes the place of an eager PyTorch loop of T dependent steps a
+// direction, each several kernel launches.
 //
-// What bounds it: the T dependent steps of each direction. The bytes (log_em
-// and log_pi read once, the posteriors written once) take microseconds at
-// 3.35 TB/s, and the operations (about 4 C^2 a step and sample) less; a step's
-// latency (2 C shuffles, C + 1 expf, three logf, C dependent adds) times T is
-// the floor of one launch, however many samples it holds.
+// What bounds it: not the bytes (log_em and log_pi read once, the posteriors
+// written once: microseconds at 3.35 TB/s) but the chain of dependent steps.
+// A sequential pass has T of them a direction; this one cuts the intervals
+// into chunks of L steps (the caller's `chunk`, 128 by a sweep on the card)
+// and has 2 L + P a direction, P = ceil((T - 1) / L) chunks.
 //
-// Design: one block of eight warps per sample. Warp 0 runs the forward
-// recursion while warp 1 runs the backward one; lane c holds state c
-// (C <= 32; lanes c >= C take part in the shuffles only). A lane forms its
-// column (forward) or its share of a row (backward) of tr_t from stay[t] and
-// log_pi in registers, so the (S, T - 1, C, C) transition tensor is never
-// stored. Each of the two warps loads its inputs kPrefetch steps ahead into
-// registers, so a step does not wait on device memory. alpha goes to `out`,
-// beta to the scratch `beta`; after a __syncthreads all eight warps normalise
-// the intervals in place, four of a warp's at once, so that their loads
-// overlap.
+// Design: after log_stay_kernel (the logs of stay and 1 - stay, once for
+// every step), three kernels on one stream:
+//   A (transfer_kernel) for each sample, chunk, direction and state i, one
+//     lane runs the chunk's L steps from the one-hot start e_i, holding the
+//     whole vector over the states in registers: row i of the chunk's C x C
+//     transfer in the log semiring, and its log-scale. A is C times the
+//     sequential pass's work and bound by its throughput, so a lane does a
+//     step's log-sum-exps in its own registers, with no shuffle and no idle
+//     lane; C lanes of a warp share a chunk, so their loads are broadcasts.
+//   B (starts_kernel) for each sample and direction, a group of W lanes
+//     (lane c holds state c; W = 8 for C <= 8, else 32) scans the P transfers
+//     in order for every chunk's start vector.
+//   C (posterior_kernel) for each sample and chunk, a group of W lanes of
+//     warp 0 reruns the chunk's forward steps from its true start, and a
+//     group of warp 1 its backward steps, into shared memory; then the
+//     block normalises y + em + beta over the states and writes each
+//     posterior once. C is bound by the latency of its L steps, and a step
+//     spread over W lanes (group log-sum-exps of log2 W shuffles) is shorter
+//     than one in a lane's registers (A's layout took 3 times as long for
+//     C on an H100).
+// The step is O(C), not O(C^2). The forward recursion carries
+// y_t = alpha_t - em_t (y_0 = log_pi_0); with u = y_{p-1} + em_{p-1}
+// normalised,
+//   y_p(c') = logaddexp(log stay + u(c'), log(1 - stay) + log_pi_p(c')),
+// and with v = em_p + beta_p normalised,
+//   beta_{p-1}(c) = logaddexp(log stay + v(c), log(1 - stay) + lse_c'(log_pi_p(c') + v(c'))):
+// one or two log-sum-exps and a logaddexp a state. W (8 or 32) is a template
+// parameter, so every loop over the states is unrolled.
 //
-// Arithmetic: operation for operation that of the plain version
-// (ops/cnv_hmm.hmm_forward_backward_reference), in float32, with no product
-// contracted into an FMA (__fmul_rn, __fadd_rn): a log-sum-exp takes the max
-// of its C terms (0 where that is not finite), sums the terms' exps from 0 in
-// order c = 0, 1, ..., C - 1 and adds the log of the sum to the max. The
-// kernel and the plain version therefore agree to the last bit wherever expf
-// and logf do, which matters here: a log joint of 10,000 intervals reaches
-// |4e4|, where one rounding step of a float32 is 0.004.
+// Arithmetic: every vector is normalised (less its log-sum-exp over the
+// states; a start vector less its max) at every step, and a transfer's rows
+// keep their log-scales apart, applied relative to their largest in B: one
+// common scale per matrix, which keeps the start states' relative weights
+// (a scale per row would lose them). A per-interval constant cancels in
+// the posterior, em_t + (y_t + beta_t - lse(y_t + em_t + beta_t)), so no log
+// joint of |4e4| is formed; and the emission, which reaches -1e3 or less on
+// a fitted shard for states far from the data, is added last, so such a log
+// posterior takes one float32 rounding at its size and not three. The order
+// of operations is not the sequential plain version's: on a 32 x 10,000 x 6
+// shard the kernel is held to 1e-3 of the float64 sequential pass (the
+// float32 one is ~0.01-0.03 off it) and to 1e-4 (plus two float32 rounding
+// steps of the value) of ops/cnv_hmm.hmm_forward_backward_chunked_reference,
+// the plain version of this association. A log-sum-exp takes the max, 0
+// where that is not finite, so an all -inf vector stays -inf and no NaN
+// appears.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kPrefetch = 8;  // steps a warp's loads run ahead of its recursion
 constexpr int kMaxStates = 32;
-constexpr int kWarps = 8;  // a block: the two recursions, then all eight normalise
-constexpr int kNormUnroll = 4;  // intervals a warp normalises at once
+constexpr int kPrefetch = 8;       // steps a group's loads run ahead of its recursion (C)
+constexpr int kThreads = 128;      // threads of an A or B block
+constexpr int kPostThreads = 64;   // a C block: the forward warp and the backward warp
+
 
 __device__ __forceinline__ float finite_or_zero(float m) { return isfinite(m) ? m : 0.0f; }
 
-// log-transitions into this lane's state at a step with stay probability
-// `stay` and log prior `lp` of this state: from another state (off) and from
-// itself (dia); stay * 0 + b is b and stay * 1 is stay, as in the plain version.
-__device__ __forceinline__ void transition(float stay, float lp, float& off, float& dia) {
-  const float b = __fmul_rn(__fsub_rn(1.0f, stay), expf(lp));
-  off = logf(b);
-  dia = logf(__fadd_rn(stay, b));
+// The recursion's exps and logs take the hardware's approximations (ex2 and
+// lg2, a few ulp): the step is a chain of them, and phase A runs C of its
+// recursions for every one of the sequential pass's.
+__device__ __forceinline__ float fexp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+__device__ __forceinline__ float flog(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y * 0.6931471805599453f;
 }
 
-__device__ __forceinline__ float shfl(float v, int lane) {
-  return __shfl_sync(0xffffffffu, v, lane);
+// log(e^a + e^b) without a branch: where both are -inf, fminf - fmaxf is NaN,
+// which fmaxf turns into -1e30, whose exp is 0.
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  const float m = fmaxf(a, b);
+  return m + flog(1.0f + fexp(fmaxf(fminf(a, b) - m, -1e30f)));
 }
 
-__global__ void __launch_bounds__(kWarps * 32) cnv_hmm_kernel(const float* __restrict__ log_em,
-                                                     const float* __restrict__ log_pi,
-                                                     const float* __restrict__ stay,
-                                                     float* __restrict__ out,
-                                                     float* __restrict__ beta, int T, int C) {
-  const int s = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+// ---- phase A's recursion: a lane holds a whole vector over the states
+
+// log-sum-exp of a lane's vector v[0 .. C-1] (kMax slots).
+template <int kMax>
+__device__ __forceinline__ float vec_lse(const float (&v)[kMax], int C) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < kMax; ++c)
+    if (c < C) m = fmaxf(m, v[c]);
+  m = finite_or_zero(m);
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kMax; ++c)
+    if (c < C) s += fexp(v[c] - m);
+  return flog(s) + m;
+}
+
+// One step at position p of a lane's vector x (em: interval p - 1's row
+// forward, p's backward; lp: interval p's row; ls, lb: log stay and
+// log(1 - stay) of transition p - 1 -> p); adds the log-scale taken off the
+// old vector to acc. Backward, lse(lp + u0) - n stands for lse(lp + u0 - n).
+template <bool kFwd, int kMax>
+__device__ __forceinline__ void row_step(float (&x)[kMax], const float (&em)[kMax],
+                                         const float (&lp)[kMax], float ls, float lb, int C,
+                                         float& acc) {
+  float u[kMax], v[kMax];
+#pragma unroll
+  for (int c = 0; c < kMax; ++c) {
+    u[c] = x[c] + em[c];
+    v[c] = lp[c] + u[c];
+  }
+  const float n = finite_or_zero(vec_lse<kMax>(u, C));
+  const float w = kFwd ? 0.0f : vec_lse<kMax>(v, C) - n;
+  acc += n;
+#pragma unroll
+  for (int c = 0; c < kMax; ++c)
+    if (c < C) x[c] = logaddexp(ls + (u[c] - n), lb + (kFwd ? lp[c] : w));
+}
+
+template <int kMax>
+__device__ __forceinline__ void load_row(float (&dst)[kMax], const float* __restrict__ src, int C,
+                                         float pad) {
+#pragma unroll
+  for (int c = 0; c < kMax; ++c) dst[c] = c < C ? src[c] : pad;
+}
+
+// n steps of x at positions p0, p0 + 1, ... (forward) or p0, p0 - 1, ...
+// (backward) of one sample's em, lp (T, C).
+template <bool kFwd, int kMax>
+__device__ void row_run(float (&x)[kMax], const float* __restrict__ em,
+                        const float* __restrict__ lp, const float* __restrict__ log_stay,
+                        const float* __restrict__ log_move, int C, int p0, int n, float& acc) {
+  const int dp = kFwd ? 1 : -1;
+  for (int j = 0; j < n; ++j) {
+    const int p = p0 + j * dp;
+    float e[kMax], l[kMax];
+    load_row<kMax>(e, em + (kFwd ? p - 1 : p) * C, C, 0.0f);
+    load_row<kMax>(l, lp + p * C, C, -INFINITY);
+    row_step<kFwd, kMax>(x, e, l, log_stay[p - 1], log_move[p - 1], C, acc);
+  }
+}
+
+// ---- phase C's recursion: a group of W lanes holds a vector, lane c state c
+
+// A group of W lanes (W a power of two <= 32) aligned within its warp.
+template <int W>
+struct Group {
+  unsigned mask;
+  __device__ explicit Group(int lane_in_warp)
+      : mask(W == 32 ? 0xffffffffu : ((1u << W) - 1u) << (lane_in_warp & ~(W - 1))) {}
+  __device__ __forceinline__ float max(float v) const {
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(mask, v, o, W));
+    return v;
+  }
+  __device__ __forceinline__ float sum(float v) const {
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o, W);
+    return v;
+  }
+  __device__ __forceinline__ float lse(float v) const {
+    const float m = finite_or_zero(max(v));
+    return flog(sum(fexp(v - m))) + m;
+  }
+  // lse of a and of b, their reductions interleaved
+  __device__ __forceinline__ void lse2(float a, float b, float& la, float& lb) const {
+    float ma = a, mb = b;
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) {
+      ma = fmaxf(ma, __shfl_xor_sync(mask, ma, o, W));
+      mb = fmaxf(mb, __shfl_xor_sync(mask, mb, o, W));
+    }
+    ma = finite_or_zero(ma);
+    mb = finite_or_zero(mb);
+    float sa = fexp(a - ma), sb = fexp(b - mb);
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) {
+      sa += __shfl_xor_sync(mask, sa, o, W);
+      sb += __shfl_xor_sync(mask, sb, o, W);
+    }
+    la = flog(sa) + ma;
+    lb = flog(sb) + mb;
+  }
+  __device__ __forceinline__ float get(float v, int lane) const {
+    return __shfl_sync(mask, v, lane, W);
+  }
+};
+
+// One step at position p (em of interval p - 1 forward, p backward; lp of
+// interval p; ls, lb = log stay and log(1 - stay) of transition p - 1 -> p)
+// of this lane's state; adds the
+// log-scale taken off the old vector to acc. Backward, lse(lp + u0) - n
+// stands for lse(lp + u0 - n), so that both reductions run at once.
+template <bool kFwd, int W>
+__device__ __forceinline__ float group_step(const Group<W>& g, bool on, float x, float em,
+                                            float lp, float ls, float lb, float& acc) {
+  const float u0 = x + em;
+  float n, w;
+  if (kFwd) {
+    n = finite_or_zero(g.lse(u0));
+    w = lp;
+  } else {
+    float lw;
+    g.lse2(u0, lp + u0, n, lw);
+    n = finite_or_zero(n);
+    w = lw - n;
+  }
+  acc += n;
+  const float y = logaddexp(ls + (u0 - n), lb + w);
+  return on ? y : -INFINITY;
+}
+
+// n steps from x at positions p0, p0 + 1, ... (forward) or p0, p0 - 1, ...
+// (backward) of one sample's em, lp (T, C); with kStore, step j's vector goes
+// to store[j * sstride + lane].
+template <bool kFwd, bool kStore, int W>
+__device__ float group_run(const Group<W>& g, int lane, int C, float x,
+                           const float* __restrict__ em, const float* __restrict__ lp,
+                           const float* __restrict__ log_stay, const float* __restrict__ log_move,
+                           int p0, int n, float& acc, float* store, int sstride) {
   const bool on = lane < C;
-  const size_t base = static_cast<size_t>(s) * T * C;
-  const float* em = log_em + base;
-  const float* lp = log_pi + base;
-  float* al = out + base;
-  float* be = beta + base;
+  const int dp = kFwd ? 1 : -1;
+  float pem[kPrefetch], plp[kPrefetch], pls[kPrefetch], plb[kPrefetch];
+#pragma unroll
+  for (int k = 0; k < kPrefetch; ++k) {
+    const int p = p0 + k * dp;
+    const bool ld = k < n;
+    pem[k] = ld && on ? em[(kFwd ? p - 1 : p) * C + lane] : 0.0f;
+    plp[k] = ld && on ? lp[p * C + lane] : -INFINITY;
+    pls[k] = ld ? log_stay[p - 1] : 0.0f;
+    plb[k] = ld ? log_move[p - 1] : 0.0f;
+  }
+  for (int j0 = 0; j0 < n; j0 += kPrefetch) {
+#pragma unroll
+    for (int k = 0; k < kPrefetch; ++k) {
+      const int j = j0 + k;
+      if (j >= n) break;
+      const float e = pem[k], l = plp[k], ls = pls[k], lb = plb[k];
+      const int jn = j + kPrefetch;
+      if (jn < n) {
+        const int p = p0 + jn * dp;
+        if (on) {
+          pem[k] = em[(kFwd ? p - 1 : p) * C + lane];
+          plp[k] = lp[p * C + lane];
+        }
+        pls[k] = log_stay[p - 1];
+        plb[k] = log_move[p - 1];
+      }
+      x = group_step<kFwd, W>(g, on, x, e, l, ls, lb, acc);
+      if (kStore) store[j * sstride + lane] = x;
+    }
+  }
+  return x;
+}
 
-  float pem[kPrefetch] = {}, plp[kPrefetch] = {}, pst[kPrefetch] = {};
-  if (warp == 0) {
-    // forward: alpha_0 = lp_0 + em_0;
-    // alpha_t(c') = lse_c(alpha_{t-1}(c) + tr_{t-1}(c, c')) + em_t(c')
-    float alpha = on ? __fadd_rn(lp[lane], em[lane]) : -INFINITY;
-    if (on) al[lane] = alpha;
+__host__ __device__ inline int num_chunks(int T, int L) { return T <= 1 ? 1 : (T - 2) / L + 1; }
+
+// Scratch layout, floats: rows [2][S][P][C][W], acc [2][S][P][C],
+// starts [2][S][P][W], log stay [T - 1], log(1 - stay) [T - 1].
+struct Scratch {
+  float* rows;
+  float* acc;
+  float* starts;
+  float* log_stay;
+  float* log_move;
+  __host__ __device__ Scratch(float* base, int S, int T, int P, int C, int W)
+      : rows(base),
+        acc(base + static_cast<size_t>(2) * S * P * C * W),
+        starts(base + static_cast<size_t>(2) * S * P * C * (W + 1)),
+        log_stay(starts + static_cast<size_t>(2) * S * P * W),
+        log_move(log_stay + (T > 1 ? T - 1 : 0)) {}
+};
+
+__host__ __device__ inline long long scratch_floats(int S, int T, int C, int P, int W) {
+  return 2LL * S * P * (static_cast<long long>(C) * (W + 1) + W) + 2LL * (T > 1 ? T - 1 : 0);
+}
+
+// log stay and log(1 - stay) of every transition, once for all the steps.
+__global__ void log_stay_kernel(const float* __restrict__ stay, float* log_stay, float* log_move,
+                                int n) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n) {
+    log_stay[t] = logf(stay[t]);
+    log_move[t] = log1pf(-stay[t]);
+  }
+}
+
+// A: rows of the forward transfers of chunks 0 .. P-2 and of the backward
+// transfers of chunks 1 .. P-1 (the ones B uses), a lane a row.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    transfer_kernel(const float* __restrict__ log_em, const float* __restrict__ log_pi,
+                    float* scratch, int S, int T, int C, int L, int P) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int per_dir = S * (P - 1) * C;
+  if (g >= 2 * per_dir) return;
+  const int dir = g / per_dir;
+  int r = g - dir * per_dir;
+  const int i = r % C;
+  r /= C;
+  const int kk = r % (P - 1);
+  const int s = r / (P - 1);
+  const int k = dir == 0 ? kk : kk + 1;
+  const int begin = k * L, end = min(begin + L, T - 1);
+  const Scratch sc(scratch, S, T, P, C, W);
+  const size_t base = static_cast<size_t>(s) * T * C;
+  float acc = 0.0f;
+  float x[W];
 #pragma unroll
-    for (int k = 0; k < kPrefetch; ++k) {
-      const int t = 1 + k;
-      if (t < T && on) {
-        pem[k] = em[t * C + lane];
-        plp[k] = lp[t * C + lane];
-        pst[k] = stay[t - 1];
+  for (int c = 0; c < W; ++c) x[c] = c == i ? 0.0f : -INFINITY;
+  if (dir == 0)
+    row_run<true, W>(x, log_em + base, log_pi + base, sc.log_stay, sc.log_move, C, begin + 1,
+                     end - begin, acc);
+  else
+    row_run<false, W>(x, log_em + base, log_pi + base, sc.log_stay, sc.log_move, C, end,
+                      end - begin, acc);
+  const size_t m = (static_cast<size_t>(dir) * S + s) * P + k;
+  float* row = sc.rows + (m * C + i) * W;
+#pragma unroll
+  for (int c = 0; c < W; ++c) row[c] = x[c];
+  sc.acc[m * C + i] = acc;
+}
+
+// B: each chunk's start vector, less its max: the forward one (y) at interval
+// begin_k (y_0 = log_pi_0 first), the backward one at end_k
+// (beta_{T-1} = 0 first), each from the one before through its transfer:
+//   x'(j) = lse_i(x(i) + acc(i) - max acc + rows[i](j)).
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    starts_kernel(const float* __restrict__ log_pi, float* scratch, int S, int T, int C, int P) {
+  const int g = (blockIdx.x * kThreads + threadIdx.x) / W;
+  const int lane = threadIdx.x & (W - 1);
+  if (g >= 2 * S) return;
+  const int dir = g / S, s = g - dir * S;
+  const bool on = lane < C;
+  const Group<W> grp(threadIdx.x & 31);
+  const Scratch sc(scratch, S, T, P, C, W);
+  const size_t ds = static_cast<size_t>(dir) * S + s;
+  const size_t base = static_cast<size_t>(s) * T * C;
+  float x = on ? (dir == 0 ? log_pi[base + lane] : 0.0f) : -INFINITY;
+  x -= finite_or_zero(grp.max(x));
+  int k = dir == 0 ? 0 : P - 1;
+  const int dk = dir == 0 ? 1 : -1;
+  sc.starts[(ds * P + k) * W + lane] = x;
+  // the transfer used at step q (rows: row i's entry of this lane's state;
+  // acc: this lane's row scale), loaded kAhead steps ahead of its use
+  constexpr int kAhead = W == 8 ? 4 : 2;
+  float rbuf[kAhead][W], abuf[kAhead];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    const int q = 1 + a;
+    const size_t m = ds * P + (dir == 0 ? q - 1 : P - q);
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      rbuf[a][i] = q < P && i < C ? sc.rows[(m * C + i) * W + lane] : -INFINITY;
+    abuf[a] = q < P && on ? sc.acc[m * C + lane] : -INFINITY;
+  }
+  for (int q0 = 1; q0 < P; q0 += kAhead) {
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      const int q = q0 + a;
+      if (q >= P) break;
+      float rows[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) rows[i] = rbuf[a][i];
+      const float acc = abuf[a];
+      const int qn = q + kAhead;
+      if (qn < P) {
+        const size_t m = ds * P + (dir == 0 ? qn - 1 : P - qn);
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          if (i < C) rbuf[a][i] = sc.rows[(m * C + i) * W + lane];
+        if (on) abuf[a] = sc.acc[m * C + lane];
       }
-    }
-    for (int t0 = 1; t0 < T; t0 += kPrefetch) {
+      const float xs = x + (acc - grp.max(acc));
+      float terms[W], mx = -INFINITY;
 #pragma unroll
-      for (int k = 0; k < kPrefetch; ++k) {
-        const int t = t0 + k;
-        if (t >= T) break;
-        const float e_t = pem[k], lp_t = plp[k], st = pst[k];
-        const int tn = t + kPrefetch;
-        if (tn < T && on) {
-          pem[k] = em[tn * C + lane];
-          plp[k] = lp[tn * C + lane];
-          pst[k] = stay[tn - 1];
-        }
-        float off = 0.0f, dia = 0.0f;
-        if (on) transition(st, lp_t, off, dia);
-        float m = -INFINITY;
-        for (int c = 0; c < C; ++c) {
-          const float x = __fadd_rn(shfl(alpha, c), c == lane ? dia : off);
-          m = fmaxf(m, x);
-        }
-        m = finite_or_zero(m);
-        float sum = 0.0f;
-        for (int c = 0; c < C; ++c) {
-          const float x = __fadd_rn(shfl(alpha, c), c == lane ? dia : off);
-          const float e = expf(__fsub_rn(x, m));
-          sum = __fadd_rn(sum, e);
-        }
-        alpha = on ? __fadd_rn(__fadd_rn(logf(sum), m), e_t) : -INFINITY;
-        if (on) al[t * C + lane] = alpha;
+      for (int i = 0; i < W; ++i) {
+        terms[i] = i < C ? grp.get(xs, i) + rows[i] : -INFINITY;
+        mx = fmaxf(mx, terms[i]);
       }
-    }
-  } else if (warp == 1) {
-    // backward: beta_{T-1} = 0;
-    // beta_t(c) = lse_c'(tr_t(c, c') + (em_{t+1}(c') + beta_{t+1}(c')))
-    float b = 0.0f;
-    if (on) be[(T - 1) * C + lane] = b;
+      mx = finite_or_zero(mx);
+      float sum = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kPrefetch; ++k) {
-      const int t = T - 2 - k;
-      if (t >= 0 && on) {
-        pem[k] = em[(t + 1) * C + lane];
-        plp[k] = lp[(t + 1) * C + lane];
-        pst[k] = stay[t];
-      }
+      for (int i = 0; i < W; ++i) sum += fexp(terms[i] - mx);
+      x = on ? flog(sum) + mx : -INFINITY;
+      x -= finite_or_zero(grp.max(x));
+      k += dk;
+      sc.starts[(ds * P + k) * W + lane] = x;
     }
-    for (int t0 = T - 2; t0 >= 0; t0 -= kPrefetch) {
-#pragma unroll
-      for (int k = 0; k < kPrefetch; ++k) {
-        const int t = t0 - k;
-        if (t < 0) break;
-        const float e_n = pem[k], lp_n = plp[k], st = pst[k];
-        const int tn = t - kPrefetch;
-        if (tn >= 0 && on) {
-          pem[k] = em[(tn + 1) * C + lane];
-          plp[k] = lp[(tn + 1) * C + lane];
-          pst[k] = stay[tn];
-        }
-        float off = 0.0f, dia = 0.0f;
-        if (on) transition(st, lp_n, off, dia);
-        const float v = __fadd_rn(e_n, b);  // em_{t+1} + beta_{t+1} of this lane's state
-        float m = -INFINITY;
-        for (int c = 0; c < C; ++c) {
-          const float o = shfl(off, c), w = shfl(v, c);
-          m = fmaxf(m, __fadd_rn(c == lane ? dia : o, w));
-        }
-        m = finite_or_zero(m);
-        float sum = 0.0f;
-        for (int c = 0; c < C; ++c) {
-          const float o = shfl(off, c), w = shfl(v, c);
-          const float e = expf(__fsub_rn(__fadd_rn(c == lane ? dia : o, w), m));
-          sum = __fadd_rn(sum, e);
-        }
-        b = on ? __fadd_rn(logf(sum), m) : 0.0f;
-        if (on) be[t * C + lane] = b;
+  }
+}
+
+// C: chunk k of sample s holds intervals begin_k .. end_k - 1 (the last
+// chunk also T - 1). A block takes G = 32 / W chunks: in warp 0 each group
+// runs a chunk's y (alpha less the emission) from its start, in warp 1 its
+// beta, into shared memory; then every group of W threads normalises
+// y + em + beta of one interval at a time.
+template <int W>
+__global__ void __launch_bounds__(kPostThreads)
+    posterior_kernel(const float* __restrict__ log_em, const float* __restrict__ log_pi,
+                     float* scratch, float* __restrict__ out, int S, int T, int C, int L, int P) {
+  constexpr int G = 32 / W;
+  extern __shared__ float sh[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Scratch sc(scratch, S, T, P, C, W);
+  {
+    const int gi = lane / W, lw = lane & (W - 1);
+    const int idx = blockIdx.x * G + gi;
+    if (idx < S * P) {
+      const int s = idx / P, k = idx - s * P;
+      const int begin = k * L, end = min(begin + L, T - 1);
+      const bool last = k == P - 1;
+      const size_t base = static_cast<size_t>(s) * T * C;
+      float* alpha = sh + gi * 2 * (L + 1) * W;  // y
+      float* beta = alpha + (L + 1) * W;
+      const Group<W> grp(lane);
+      float acc = 0.0f;
+      if (warp == 0) {
+        const float x = sc.starts[(static_cast<size_t>(s) * P + k) * W + lw];
+        alpha[lw] = x;
+        group_run<true, true, W>(grp, lw, C, x, log_em + base, log_pi + base, sc.log_stay,
+                                 sc.log_move, begin + 1, end - begin - (last ? 0 : 1), acc,
+                                 alpha + W, W);
+      } else {
+        const float x = sc.starts[((static_cast<size_t>(S) + s) * P + k) * W + lw];
+        if (last) beta[(end - begin) * W + lw] = x;
+        group_run<false, true, W>(grp, lw, C, x, log_em + base, log_pi + base, sc.log_stay,
+                                  sc.log_move, end, end - begin, acc,
+                                  beta + (end - begin - 1) * W, -W);
       }
     }
   }
   __syncthreads();
-
-  // log posterior = (alpha + beta) - lse_c(alpha + beta), every warp of the
-  // block on its own intervals, kNormUnroll of them loaded at once
-  for (int t0 = warp; t0 < T; t0 += kWarps * kNormUnroll) {
-    float x[kNormUnroll];
-#pragma unroll
-    for (int u = 0; u < kNormUnroll; ++u) {
-      const int t = t0 + u * kWarps;
-      x[u] = on && t < T ? __fadd_rn(al[t * C + lane], be[t * C + lane]) : -INFINITY;
-    }
-#pragma unroll
-    for (int u = 0; u < kNormUnroll; ++u) {
-      const int t = t0 + u * kWarps;
-      if (t >= T) break;
-      float m = -INFINITY;
-      for (int c = 0; c < C; ++c) m = fmaxf(m, shfl(x[u], c));
-      m = finite_or_zero(m);
-      const float e = expf(__fsub_rn(x[u], m));
-      float sum = 0.0f;
-      for (int c = 0; c < C; ++c) sum = __fadd_rn(sum, shfl(e, c));
-      if (on) al[t * C + lane] = __fsub_rn(x[u], __fadd_rn(logf(sum), m));
+  const Group<W> grp(lane);
+  const int lw = threadIdx.x & (W - 1);
+  for (int gi = 0; gi < G; ++gi) {
+    const int idx = blockIdx.x * G + gi;
+    if (idx >= S * P) break;
+    const int s = idx / P, k = idx - s * P;
+    const int begin = k * L, end = min(begin + L, T - 1);
+    const int nt = end - begin + (k == P - 1 ? 1 : 0);
+    const float* alpha = sh + gi * 2 * (L + 1) * W;
+    const float* beta = alpha + (L + 1) * W;
+    const size_t at = (static_cast<size_t>(s) * T + begin) * C;
+    for (int u = threadIdx.x / W; u < nt; u += kPostThreads / W) {
+      const float e = lw < C ? log_em[at + u * C + lw] : 0.0f;
+      const float z = lw < C ? alpha[u * W + lw] + beta[u * W + lw] : -INFINITY;
+      const float l = grp.lse(z + e);
+      if (lw < C) out[at + u * C + lw] = e + (z - l);
     }
   }
+}
+
+template <int W>
+int launch(const float* em, const float* lp, const float* st, float* out, float* scratch, int S,
+           int T, int C, int L, cudaStream_t stream, int* launched) {
+  const int P = num_chunks(T, L);
+  const Scratch sc(scratch, S, T, P, C, W);
+  cudaError_t err;
+  if (T > 1) {
+    log_stay_kernel<<<(T - 1 + 255) / 256, 256, 0, stream>>>(st, sc.log_stay, sc.log_move, T - 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
+  }
+  if (P > 1) {
+    const long long threads = 2LL * S * (P - 1) * C;
+    transfer_kernel<W><<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads, 0,
+                         stream>>>(em, lp, scratch, S, T, C, L, P);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
+  }
+  starts_kernel<W><<<(2 * S * W + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      lp, scratch, S, T, C, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  const size_t shmem = static_cast<size_t>(2) * (L + 1) * 32 * sizeof(float);
+  if (shmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(posterior_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  posterior_kernel<W><<<static_cast<unsigned>((S * P + 32 / W - 1) / (32 / W)), kPostThreads, shmem,
+                        stream>>>(
+      em, lp, scratch, out, S, T, C, L, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  return 0;
 }
 
 }  // namespace
@@ -200,13 +514,27 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). log_em,
-// log_pi, out and beta are (S, T, C) f32, contiguous; stay is (T - 1,) f32.
+// Floats of scratch the pass needs (S, T, C as for cnv_hmm; L the chunk).
+extern "C" long long cnv_hmm_scratch(int S, int T, int C, int L) {
+  return scratch_floats(S, T, C, num_chunks(T, L), C <= 8 ? 8 : 32);
+}
+
+// Launches the pass's kernels on `stream` (log_stay when T > 1, transfer
+// when T > L + 1, starts, posterior) and sets *launched to the number of them
+// launched; returns the first cudaGetLastError() that is not 0, else 0.
+// log_em, log_pi and out are (S, T, C) f32, contiguous; stay is (T - 1,) f32;
+// scratch holds cnv_hmm_scratch(S, T, C, L) floats; L is the chunk's steps.
 extern "C" int cnv_hmm(const void* log_em, const void* log_pi, const void* stay, void* out,
-                       void* beta, int S, int T, int C, void* stream) {
-  if (S <= 0 || T <= 0 || C <= 0 || C > kMaxStates) return static_cast<int>(cudaErrorInvalidValue);
-  cnv_hmm_kernel<<<S, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(log_em), static_cast<const float*>(log_pi),
-      static_cast<const float*>(stay), static_cast<float*>(out), static_cast<float*>(beta), T, C);
-  return static_cast<int>(cudaGetLastError());
+                       void* scratch, int S, int T, int C, int L, void* stream, int* launched) {
+  *launched = 0;
+  if (S <= 0 || T <= 0 || C <= 0 || C > kMaxStates || L <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* em = static_cast<const float*>(log_em);
+  const auto* lp = static_cast<const float*>(log_pi);
+  const auto* st = static_cast<const float*>(stay);
+  auto* o = static_cast<float*>(out);
+  auto* sc = static_cast<float*>(scratch);
+  auto strm = static_cast<cudaStream_t>(stream);
+  return C <= 8 ? launch<8>(em, lp, st, o, sc, S, T, C, L, strm, launched)
+                : launch<32>(em, lp, st, o, sc, S, T, C, L, strm, launched);
 }

@@ -17,9 +17,14 @@ result in the caller's order. The kernels read each haplotype as one row of
 bytes: the pools' e (He, NH) is stored haplotype-major (ops/pairhmm.make_pools),
 and the wrappers pass it as it is.
 
-The copy-number HMM kernel (csrc/cnv_hmm.cu, wrapper `cnv_hmm`) runs the
-forward-backward pass of the gCNV denoising model; ops/cnv_hmm.py holds its
-plain version.
+The copy-number HMM kernels (csrc/cnv_hmm.cu, wrapper `cnv_hmm_launch`, which
+also returns how many kernels the pass launched, and `cnv_hmm`) run the
+forward-backward pass of the gCNV denoising model in chunks of CNV_HMM_CHUNK
+steps, parallel over the intervals; ops/cnv_hmm.py holds the sequential plain
+version and the plain version of the chunked association. The chunked pass
+rounds otherwise than the sequential one: it is held to 1e-3 of the float64
+sequential pass and to 1e-4 plus two float32 rounding steps of the value of
+the chunked plain version.
 """
 from __future__ import annotations
 
@@ -124,7 +129,9 @@ def _bind_pairhmm_matrix(lib):
 def _bind_cnv_hmm(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.cnv_hmm.restype = i
-    lib.cnv_hmm.argtypes = [vp] * 5 + [i] * 3 + [vp]
+    lib.cnv_hmm.argtypes = [vp] * 5 + [i] * 4 + [vp, ctypes.POINTER(i)]
+    lib.cnv_hmm_scratch.restype = ctypes.c_longlong
+    lib.cnv_hmm_scratch.argtypes = [i] * 4
 
 
 def plan_groups(rows: torch.Tensor, hlen: torch.Tensor | None = None, hmax: int = 0):
@@ -296,13 +303,18 @@ def plan_on_card(pools, ri: torch.Tensor | None = None, hi: torch.Tensor | None 
 
 
 CNV_HMM_MAX_STATES = 32  # csrc/cnv_hmm.cu: kMaxStates (one lane a state)
+CNV_HMM_CHUNK = 128  # steps a chunk of the HMM pass, picked by a sweep on the card
 
 
-def cnv_hmm(log_em: torch.Tensor, log_pi: torch.Tensor, stay: torch.Tensor) -> torch.Tensor:
-    """Launch the copy-number HMM forward-backward kernel (csrc/cnv_hmm.cu) on
-    PyTorch's current stream: (S, T, C) f32 log posteriors from log emissions
-    and log priors (S, T, C) and stay probabilities (T - 1,), all f32,
-    contiguous, on one CUDA device (ops/cnv_hmm.py states the model)."""
+def cnv_hmm_launch(log_em: torch.Tensor, log_pi: torch.Tensor, stay: torch.Tensor,
+                   chunk: int = CNV_HMM_CHUNK) -> tuple[torch.Tensor, int]:
+    """Launch the copy-number HMM forward-backward pass (csrc/cnv_hmm.cu: the
+    logs of stay, transfer, scan and posterior kernels) on PyTorch's current
+    stream: (S, T, C) f32 log posteriors from log emissions and log priors
+    (S, T, C) and stay probabilities (T - 1,), all f32, contiguous, on one CUDA
+    device (ops/cnv_hmm.py states the model), and the number of kernels the
+    pass launched. `chunk` is the steps of a chunk; the entry keeps
+    CNV_HMM_CHUNK, and only a sweep on the card passes another."""
     what = "cnv_hmm"
     dev = log_em.device
     _check(dev.type == "cuda", what, f"log_em is on {dev}, not a CUDA device")
@@ -312,6 +324,7 @@ def cnv_hmm(log_em: torch.Tensor, log_pi: torch.Tensor, stay: torch.Tensor) -> t
     _check(S > 0 and T > 0 and 0 < C <= CNV_HMM_MAX_STATES, what,
            f"needs S, T > 0 and 1 <= C <= {CNV_HMM_MAX_STATES}: {(S, T, C)}")
     _check(stay.shape == (T - 1,), what, f"stay must be (T - 1,) = ({T - 1},)")
+    _check(chunk >= 1, what, f"chunk must be >= 1: {chunk}")
     for t in (log_em, log_pi, stay):
         _check(t.dtype == torch.float32, what, "all operands must be float32")
         _check(t.device == dev, what, f"all operands must be on {dev}")
@@ -319,9 +332,24 @@ def cnv_hmm(log_em: torch.Tensor, log_pi: torch.Tensor, stay: torch.Tensor) -> t
     _check(log_em.numel() < 2 ** 31, what, "operands too large")
     lib = library("cnv_hmm")
     out = torch.empty_like(log_em)
-    beta = torch.empty_like(log_em)
+    scratch = torch.empty(lib.cnv_hmm_scratch(S, T, C, chunk), dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.cnv_hmm(log_em.data_ptr(), log_pi.data_ptr(), stay.data_ptr(), out.data_ptr(),
-                         beta.data_ptr(), S, T, C, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if_failed(lib, rc, what, f"S={S}, T={T}, C={C}")
-    return out
+                         scratch.data_ptr(), S, T, C, chunk,
+                         torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    _raise_if_failed(lib, rc, what, f"S={S}, T={T}, C={C}, chunk={chunk}")
+    return out, launched.value
+
+
+def cnv_hmm(log_em: torch.Tensor, log_pi: torch.Tensor, stay: torch.Tensor,
+            chunk: int = CNV_HMM_CHUNK) -> torch.Tensor:
+    """The log posteriors of cnv_hmm_launch."""
+    return cnv_hmm_launch(log_em, log_pi, stay, chunk)[0]
+
+
+def cnv_hmm_dependent_steps(T: int, chunk: int = CNV_HMM_CHUNK) -> int:
+    """Dependent steps of one pass, per direction: a chunk's transfer, the
+    scan over the chunks and the chunk's own values, 2 L + P (P chunks)."""
+    P = max(1, -(-(T - 1) // chunk))
+    return (2 * min(chunk, max(T - 1, 0)) if P > 1 else max(T - 1, 0)) + P

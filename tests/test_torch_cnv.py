@@ -198,10 +198,10 @@ def test_hmm_plain_version_matches_gatk_tpu(case):
 def test_entry_on_cpu_runs_the_plain_version_uncounted():
     rng = np.random.default_rng(6)
     args = [torch.as_tensor(a) for a in _hmm_inputs(rng, 2, 20, 6, np.full(19, 0.9))]
-    before = (cnv_hmm.hmm_forward_backward.launches, cnv_hmm.hmm_forward_backward.cells)
-    assert torch.equal(cnv_hmm.hmm_forward_backward(*args),
-                       cnv_hmm.hmm_forward_backward_reference(*args))
-    assert (cnv_hmm.hmm_forward_backward.launches, cnv_hmm.hmm_forward_backward.cells) == before
+    entry = cnv_hmm.hmm_forward_backward
+    before = (entry.passes, entry.launches, entry.cells)
+    assert torch.equal(entry(*args), cnv_hmm.hmm_forward_backward_reference(*args))
+    assert (entry.passes, entry.launches, entry.cells) == before
 
 
 def test_posterior_pass_matches(cohort):

@@ -314,18 +314,39 @@ def test_plan_kernels_order_as_the_plain_plan(cuda_device, reads_only):
         assert torch.equal(k[got_perm], k[want_perm])
 
 
-HMM_TOL = 1e-4  # max |log posterior kernel - plain|
+# the HMM kernel's log posteriors (as chip_smoke.py holds them): within 1e-3
+# of the float64 sequential plain version; within the float32 sequential
+# version's own distance from float64 plus 1e-3 of that version (the chunked
+# pass associates the sums otherwise); within 1e-4 plus two float32 rounding
+# steps of the value of the chunked plain version; the argmax state of
+# float64 wherever its top two differ by > 0.1
+HMM_TOL_F64, HMM_TOL_CHUNKED, HMM_CHUNKED_ULPS, HMM_ARGMAX_GAP = 1e-3, 1e-4, 2, 0.1
 
 
-def _hmm_inputs(rng, S, T, C, stay, device):
+def _within_chunked(got, chunked):
+    """|got - chunked| <= HMM_TOL_CHUNKED + HMM_CHUNKED_ULPS float32 steps of chunked."""
+    a = chunked.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return bool(((got - chunked).abs() <= HMM_TOL_CHUNKED + HMM_CHUNKED_ULPS * ulp).all())
+
+
+def _hmm_inputs(rng, S, T, C, stay, device, far=False):
     """Log emissions around -5, per-sample priors with p_alt 1e-6 off a
-    baseline state, and the given stay probabilities, on the device."""
+    baseline state, and the given stay probabilities, on the device. With
+    far, the first and last states' emissions lie far below the data's
+    (around -3,000 and -700), as a fitted shard's copy numbers 0 and 5 do."""
     log_em = rng.normal(-5.0, 3.0, (S, T, C))
+    if far:
+        log_em[:, :, 0] = rng.normal(-3000.0, 800.0, (S, T))
+        log_em[:, :, -1] = rng.normal(-700.0, 200.0, (S, T))
     base = rng.integers(0, C, (S, 1, 1))
     pi = np.where(np.arange(C)[None, None, :] == base, 1.0 - (C - 1) * 1e-6, 1e-6)
     log_pi = np.broadcast_to(np.log(pi), (S, T, C))
     return [torch.tensor(np.ascontiguousarray(a, np.float32), device=device)
             for a in (log_em, log_pi, stay)]
+
+
+L = cnv_hmm.CHUNK
 
 
 @pytest.mark.parametrize("S,T,C,stay", [
@@ -335,22 +356,58 @@ def _hmm_inputs(rng, S, T, C, stay, device):
     (4, 50, 6, "one"),  # stay 1: off-diagonal log transitions are -inf
     (5, 37, 32, "coherent"),  # one state on every lane
     (2, 9, 1, "coherent"),
+    (4, L, 6, "coherent"),  # the chunks' edges: one chunk of L - 1 steps,
+    (4, L + 1, 6, "coherent"),  # one chunk of L steps,
+    (4, 2 * L + 1, 6, "coherent"),  # two full chunks,
+    (6, 1000, 6, "coherent"),  # and a last chunk shorter than L
+    (3, 700, 13, "coherent"),  # C > 8: groups of 32 lanes, over several chunks
+    (8, 3000, 6, "far"),  # states far from the data: log posteriors of -6e3
 ])
 def test_cnv_hmm_kernel_matches_plain(cuda_device, S, T, C, stay):
     rng = np.random.default_rng(S * T + C)
-    stays = {"coherent": np.exp(-rng.uniform(500, 3000, T - 1) / 10000.0),
-             "break": np.zeros(T - 1), "one": np.ones(T - 1), "none": np.zeros(0)}[stay]
-    if stay == "coherent":
-        stays[rng.integers(0, T - 1, T // 2000)] = 0.0
-    args = _hmm_inputs(rng, S, T, C, stays, cuda_device)
-    before = (cnv_hmm.hmm_forward_backward.launches, cnv_hmm.hmm_forward_backward.cells)
-    got = cnv_hmm.hmm_forward_backward(*args)
-    assert (cnv_hmm.hmm_forward_backward.launches, cnv_hmm.hmm_forward_backward.cells) == (
-        before[0] + 1, before[1] + S * T * C)
-    want = cnv_hmm.hmm_forward_backward_reference(*args)
+    coherent = stay in ("coherent", "far")
+    stays = np.exp(-rng.uniform(500, 3000, max(T - 1, 0)) / 10000.0) if coherent else {
+        "break": np.zeros(T - 1), "one": np.ones(T - 1), "none": np.zeros(0)}[stay]
+    if coherent:
+        stays[rng.integers(0, T - 1, max(1, T // 2000))] = 0.0
+    args = _hmm_inputs(rng, S, T, C, stays, cuda_device, far=stay == "far")
+    entry = cnv_hmm.hmm_forward_backward
+    before = (entry.passes, entry.launches, entry.cells)
+    got = entry(*args)
+    # the kernels of a pass: the logs of stay when there is a transition, the
+    # transfers when there are two chunks, the scan and the posteriors
+    kernels = int(T > 1) + int(T - 1 > L) + 2
+    assert (entry.passes, entry.launches, entry.cells) == (
+        before[0] + 1, before[1] + kernels, before[2] + S * T * C)
+    want64 = cnv_hmm.hmm_forward_backward_reference(*(a.double() for a in args))
+    want32 = cnv_hmm.hmm_forward_backward_reference(*args)
+    chunked = cnv_hmm.hmm_forward_backward_chunked_reference(*args)
     torch.cuda.synchronize()
     assert got.shape == (S, T, C) and torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= HMM_TOL
+    plain_err_f64 = (want32.double() - want64).abs().max().item()
+    assert (got.double() - want64).abs().max().item() <= HMM_TOL_F64
+    assert (got - want32).abs().max().item() <= plain_err_f64 + HMM_TOL_F64
+    assert _within_chunked(got, chunked)
+    if C > 1:
+        top2 = want64.topk(2, dim=-1).values
+        clear = top2[..., 0] - top2[..., 1] > HMM_ARGMAX_GAP
+        assert torch.equal(got.argmax(-1)[clear], want64.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 64, 256])
+def test_cnv_hmm_kernel_at_other_chunks(cuda_device, chunk):
+    """The kernel at chunk lengths other than the entry's, against the chunked
+    plain version at the same length."""
+    from gatk_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(chunk)
+    stays = np.exp(-rng.uniform(500, 3000, 599) / 10000.0)
+    stays[[100, 450]] = 0.0
+    args = _hmm_inputs(rng, 5, 600, 6, stays, cuda_device)
+    got = _kernels.cnv_hmm(*args, chunk=chunk)
+    want = cnv_hmm.hmm_forward_backward_chunked_reference(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _within_chunked(got, want)
 
 
 def test_cnv_hmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -367,3 +424,5 @@ def test_cnv_hmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="C <= 32"):
         big = torch.zeros((2, 10, 33), device=cuda_device)
         _kernels.cnv_hmm(big, big, stay)
+    with pytest.raises(ValueError, match="chunk"):
+        _kernels.cnv_hmm(em, lp, stay, chunk=0)
