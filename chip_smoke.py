@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gatk_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--hmm-baseline CNV_HMM_CU]
+    python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card, its power limit, the kernel builds, the native host libraries
@@ -20,13 +20,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
   hc       HaplotypeCaller end to end (BAM -> VCF) through the port's CLI; the
            planted variants must be called, and the kernels must have scored
            exactly the genotyped regions' read x haplotype pairs
+  ramped   RampedHaplotypeCaller --device cuda on the hc sample: the off-ramp
+           after assembly, then the on-ramp (the pair kernel through
+           PoolBatcher); every planted SNV called and >= 5 of 6 indels, the
+           kernels scoring exactly the genotyped pairs, its largest launch held
+           against the plain version and timed; whether the round trip calls
+           the hc phase's sites and genotypes is reported
+  recaller HaplotypeBasedVariantRecaller --device cuda on the hc sample's calls
+           and -bamout: one pair-kernel launch a variant with reads, the matrix
+           CSV within one step of its 4th decimal (1e-4) of a --device cpu run
+           of the same tool; launches, median pairs a launch and walls
   gvcf     the same sample with -ERC GVCF on a 2 kb interval (the cartesian
            route: the matrix kernel)
+  trio     a synthetic trio (utils/synthetic.write_trio: 16,569 bp, 20,000 reads
+           a sample, 24 SNVs and 6 indels with Mendelian genotypes):
+           HaplotypeCaller -ERC GVCF --device cuda over the whole contig for
+           each sample (the matrix kernel), CombineGVCFs, GenotypeGVCFs, and
+           GenomicsDBImport then GenotypeGVCFs on gendb://; every planted SNV
+           with its planted genotype in all three samples, >= n - 1 of the
+           indels in each, no Mendelian violation at a planted site, and the
+           gendb:// VCF byte-identical to the CombineGVCFs path's; the largest
+           matrix launch of the three held against the plain version and
+           timed; each tool's wall and a profiled -ERC GVCF run; the sites a
+           gatk_tpu fault reaches, with the samples' GVCF lines there
   mutect2  a synthetic tumor-only sample of the same size (8 germline het SNVs,
            12 somatic SNVs and 4 somatic indels at allele fractions 0.1-0.3)
            through Mutect2 and FilterMutectCalls on the port's CLI; the planted
            somatic variants must be called, the .stats file written, and the
            kernels must have scored exactly the genotyped regions' pairs
+  preprocess  a chrM-length sample with 1,000 planted duplicates through
+           MarkDuplicates (--metrics-file), BaseRecalibrator --known-sites and
+           ApplyBQSR (host code, each timed), then HaplotypeCaller --device cuda
+           on the recalibrated BAM: every planted duplicate flagged and as many
+           flagged as the groups of one strand and unclipped 5' end hold, the
+           read group's empirical quality within 1 of the planted error rate's
+           (23.0), every planted SNV called, the largest launch held against
+           the plain version and timed
   main_launch  the largest pair-kernel launch of the hc run, held against the
            plain version and timed at that shape
   gcnv     the germline CNV tools through the port's CLI on a GermlineCNVCaller
@@ -41,11 +70,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
            idle share
   cnv_hmm  the copy-number HMM kernels (csrc/cnv_hmm.cu, a chunked pass) on the
            gcnv run's fitted shard and on edge batches (one interval, a chain
-           break at every interval, stay 1, 32 states, 1 state, and the
-           chunks' edges), against the float64 and float32 sequential plain
-           versions and the chunked plain version (HMM_TOL_*); timed beside
-           its bound, at every chunk of a sweep, profiled by kernel, and with
-           --hmm-baseline CNV_HMM_CU in turns with an earlier kernel
+           break at every interval, stay 1, 32 states, 1 state, the chunks'
+           edges, and 33, 64, 100 and 257 states: a warp a vector), against
+           the float64 and float32 sequential plain versions and the chunked
+           plain version (HMM_TOL_*); timed beside its bound (the batches past
+           32 states too), at every chunk of a sweep, and profiled by kernel
   somatic_cnv  a panel of 40 normals x 50,000 intervals built in-process, its SVD
            on the card, a tumor case denoised against it, then ModelSegments
            --device cuda (all 50 contigs, 10,000 het sites) and
@@ -60,14 +89,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
            haplotypes and the largest launch of the gvcf run, against its plain
            version; timed beside its bound and beside the pair kernel on the
            same product expanded into pairs
-Each of the runs hc, gvcf, mutect2, gcnv and variants starts with every
-kernel's launch count at 0 and reads the counts at its end. hc, gvcf and mutect2 also
+Each of the runs hc, ramped, recaller, gvcf, trio, mutect2, preprocess, gcnv
+and variants starts with every kernel's launch count at 0 and reads the counts
+at its end. hc, gvcf and mutect2 also
 profile a second run (device time of the sweep kernels, of the plan kernels
 their launchers run first, and of all device work) and report every launch's
 useful cells, bound, group-width histogram and slot use (launch_stats), and
-the sum of the bounds. Then the card's name and power limit as nvidia-smi
-prints them, one JSON line listing every kernel of the port, and the result
-line.
+the sum of the bounds. Then the whole run's seconds, the card's name and power
+limit as nvidia-smi prints them, one JSON line listing every kernel of the
+port, and the result line.
 Needs a CUDA device and the repository's sources; imports neither jax nor gatk_tpu.
 """
 import contextlib
@@ -599,25 +629,28 @@ def _records(path):
     return out
 
 
-def _run_tool(argv, counting):
+def _run_tool(argv, counting=None):
     """One run of a tool through the port's CLI with every kernel count at 0
-    before it: (wall s, counts, stage report). The kernels must have scored
-    exactly the pairs of the regions `counting` saw genotyped."""
+    before it: (wall s ending in a device synchronisation, counts, stage
+    report); fails the script when the tool fails. With `counting`, the
+    kernels must have scored exactly the pairs of the regions it saw
+    genotyped."""
     from gatk_tpu_torch import cli
     from gatk_tpu_torch.utils.stopwatch import STAGES
 
     STAGES.reset()
     reset_counts()  # counts of the run below only
-    with counting as genotyped:
+    with counting or contextlib.nullcontext() as genotyped:
         t0 = time.perf_counter()
         rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     check(rc == 0, f"{' '.join(argv)} exited {rc}")
     counts = read_counts()
-    pairs = _pairs(counts)
-    check(pairs == genotyped[0], f"{argv[0]}: the kernels scored {pairs} pairs, the genotyped "
-                                 f"regions hold {genotyped[0]} reads x haplotypes")
+    if counting is not None:
+        pairs = _pairs(counts)
+        check(pairs == genotyped[0], f"{argv[0]}: the kernels scored {pairs} pairs, the "
+                                     f"genotyped regions hold {genotyped[0]} reads x haplotypes")
     return wall, counts, STAGES.report()
 
 
@@ -705,6 +738,25 @@ def _indels_called(planted, recs):
                    for r in recs)]
 
 
+def _germline_gates(sample, recs):
+    """(planted SNVs not called 0/1 with their alleles, planted indels called)."""
+    by_pos = {r["pos"]: r for r in recs}
+    missed = [v.pos for v in sample["variants"] if v.is_snv
+              and not (v.pos in by_pos and by_pos[v.pos]["ref"] == v.ref
+                       and by_pos[v.pos]["alts"] == [v.alt] and by_pos[v.pos]["gt"] == "0/1")]
+    return missed, _indels_called([v for v in sample["variants"] if not v.is_snv], recs)
+
+
+def _largest_launch(kept, what):
+    """The largest pair-kernel launch a path kept (keeping_launches), held
+    against its plain version and timed beside it."""
+    check(kept["n"] > 0, f"{what}: no pair-kernel launch was kept")
+    pools, ri, hi = kept["args"]
+    _, err, n_ok = _compare(pools, ri, hi, what)
+    return dict(rp=pools.rp, hmax=pools.hmax, reads=pools.rbase.shape[1], haps=pools.e.shape[1],
+                above_floor=n_ok, max_abs_err=err, **_timed(pools, ri, hi))
+
+
 def phase_hc(sample, tmp):
     from gatk_tpu_torch.calling import hc_engine
 
@@ -715,13 +767,9 @@ def phase_hc(sample, tmp):
     check(counts["pairhmm_fwd"]["launches"] > 0,
           "the PairHMM kernel was never launched by HaplotypeCaller")
     recs = _records(out)
-    by_pos = {r["pos"]: r for r in recs}
+    missed_snv, indel_called = _germline_gates(sample, recs)
     snvs = [v for v in sample["variants"] if v.is_snv]
     indels = [v for v in sample["variants"] if not v.is_snv]
-    missed_snv = [v.pos for v in snvs
-                  if not (v.pos in by_pos and by_pos[v.pos]["ref"] == v.ref
-                          and by_pos[v.pos]["alts"] == [v.alt] and by_pos[v.pos]["gt"] == "0/1")]
-    indel_called = _indels_called(indels, recs)
     profiled = _profile_tool(argv[:-1] + [out + ".2"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second HaplotypeCaller run wrote a different VCF")
@@ -806,12 +854,7 @@ def phase_mutect2(tmp):
     profiled = _profile_tool(argv[:-1] + [out + ".2"])
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second Mutect2 run wrote a different VCF")
-    largest = None
-    if kept["n"]:
-        pools, ri, hi = kept["args"]
-        _, err, n_ok = _compare(pools, ri, hi, "Mutect2's largest launch")
-        largest = dict(reads=pools.rbase.shape[1], haps=pools.e.shape[1], above_floor=n_ok,
-                       max_abs_err=err, **_timed(pools, ri, hi))
+    largest = _largest_launch(kept, "Mutect2's largest launch")
     res = dict(phase="mutect2", contig_len=sample["length"], reads=sample["n_reads"],
                write_s=write_s, records=len(recs), wall_s=wall,
                reads_per_s=sample["n_reads"] / wall, somatic_snvs_planted=len(snvs),
@@ -831,12 +874,368 @@ def phase_mutect2(tmp):
 
 def phase_main_launch(kept):
     """The largest launch of the HaplotypeCaller run: kernel against plain, timed."""
-    check(kept["n"] > 0, "the HaplotypeCaller run made no kernel launch")
-    pools, ri, hi = kept["args"]
-    _, err, n_ok = _compare(pools, ri, hi, "HaplotypeCaller's largest launch")
-    res = dict(phase="main_launch", rp=pools.rp, hmax=pools.hmax, reads=pools.rbase.shape[1],
-               haps=pools.e.shape[1], above_floor=n_ok, max_abs_err=err, **_timed(pools, ri, hi))
+    res = dict(phase="main_launch", **_largest_launch(kept, "HaplotypeCaller's largest launch"))
     emit(res)
+    return res
+
+
+# --------------------------------------------------------------------------- ramped / recaller
+
+
+def _sites(recs):
+    return [(r["pos"], r["ref"], r["alts"], r["gt"]) for r in recs]
+
+
+def phase_ramped(sample, tmp, hc_vcf):
+    """RampedHaplotypeCaller on the hc sample: the off-ramp after assembly
+    (POST_ASSEMBLER_OFF, host only), then the on-ramp (POST_ASSEMBLER_ON:
+    Smith-Waterman of the saved haplotypes, the PairHMM through PoolBatcher,
+    genotyping). The round trip does not write a straight run's VCF (it
+    genotypes the saved haplotypes over the padded regions' reads, so the
+    annotations differ: tests/test_torch_ramped_hc.py); whether it calls the
+    hc phase's sites and genotypes is reported."""
+    from gatk_tpu_torch.calling import hc_engine
+
+    state = os.path.join(tmp, "ramped.zip")
+    out = os.path.join(tmp, "ramped.vcf")
+    dev = ["--device", "cuda"]
+    off_s, off_counts, _ = _run_tool(["RampedHaplotypeCaller", "-I", sample["bam"],
+                                      "-R", sample["fasta"], "-O", state,
+                                      "--off-ramp-type", "POST_ASSEMBLER_OFF",
+                                      "--off-ramp-file", state, *dev])
+    argv = ["RampedHaplotypeCaller", "-R", sample["fasta"], "-O", out,
+            "--on-ramp-type", "POST_ASSEMBLER_ON", "--on-ramp-file", state, *dev]
+    with keeping_launches("pairhmm_fwd") as kept:
+        on_s, counts, _ = _run_tool(argv, counting_genotyped_pairs(hc_engine))
+    recs = _records(out)
+    missed, indels = _germline_gates(sample, recs)
+    res = dict(phase="ramped", off_ramp_s=off_s, on_ramp_s=on_s,
+               same_sites_as_hc=_sites(recs) == _sites(_records(hc_vcf)),
+               off_ramp_launches=_pairs(off_counts), state_bytes=os.path.getsize(state),
+               records=len(recs), launches=counts["pairhmm_fwd"]["launches"],
+               pairs=_pairs(counts), counts=counts,
+               snvs_called=sum(v.is_snv for v in sample["variants"]) - len(missed),
+               indels_called=len(indels), largest_launch=_largest_launch(
+                   kept, "the on-ramp's largest launch"), **_launches_summary(kept))
+    emit(res)
+    check(counts["pairhmm_fwd"]["launches"] > 0, "the on-ramp never launched the pair kernel")
+    check(not missed, f"on-ramp: planted SNVs not called as 0/1: {missed}")
+    check(len(indels) >= sum(not v.is_snv for v in sample["variants"]) - 1,
+          f"on-ramp: only {len(indels)} planted indels called")
+    return res
+
+
+RECALLER_TOL = 1e-4  # a printed log10 likelihood (4 decimals): one step of the 4th
+
+
+def _matrix_csv(path):
+    with open(path) as fh:
+        return [ln.split() for ln in fh.read().splitlines()]
+
+
+def phase_recaller(sample, tmp):
+    """HaplotypeBasedVariantRecaller on the hc sample: HaplotypeCaller -bamout
+    gives the alleles (its VCF) and the haplotypes (its bamout); the recaller
+    flushes the pool once a variant, so the card gets one launch a variant
+    with reads. Its matrix CSV is held to a --device cpu run (the plain
+    versions on the host) of the same tool on the same inputs."""
+    vcf_out = os.path.join(tmp, "recaller.alleles.vcf")
+    bamout = os.path.join(tmp, "recaller.haps.bam")
+    hc_s, _, _ = _run_tool(["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"],
+                            "-O", vcf_out, "-bamout", bamout, "--device", "cuda"])
+    csv = {d: os.path.join(tmp, f"recaller.{d}.csv") for d in ("cuda", "cpu")}
+    argv = {d: ["HaplotypeBasedVariantRecaller", "--alleles-file-vcf", vcf_out,
+                "--haplotypes-file-bam", bamout, "--matrix-file-csv", csv[d],
+                "-I", sample["bam"], "-R", sample["fasta"], "--device", d]
+            for d in ("cuda", "cpu")}
+    with keeping_launches("pairhmm_fwd") as kept:
+        wall, counts, _ = _run_tool(argv["cuda"])
+    cpu_s, _, _ = _run_tool(argv["cpu"])
+    got, want = _matrix_csv(csv["cuda"]), _matrix_csv(csv["cpu"])
+    blocks = sum(row[0].startswith("#") for row in got)
+    shape_ok = len(got) == len(want) and all(
+        len(a) == len(b) and (a[:5] == b[:5] if not a[0].startswith("#") else a == b)
+        for a, b in zip(got, want))
+    diffs = [abs(float(x) - float(y)) for a, b in zip(got, want) if not a[0].startswith("#")
+             for x, y in zip(a[5:], b[5:])] if shape_ok else []
+    pairs = sorted(a[1].numel() for a in kept["all"])
+    res = dict(phase="recaller", hc_bamout_s=hc_s, wall_s=wall, cpu_wall_s=cpu_s,
+               variants=blocks, rows=len(got), launches=counts["pairhmm_fwd"]["launches"],
+               pairs=_pairs(counts), median_pairs_per_launch=(
+                   float(np.median(pairs)) if pairs else 0.0), counts=counts,
+               values=len(diffs), max_abs_diff_vs_cpu=max(diffs, default=0.0),
+               values_differing=sum(x > 0 for x in diffs))
+    emit(res)
+    check(blocks > 0, "the recaller wrote no variant")
+    check(counts["pairhmm_fwd"]["launches"] == blocks,
+          f"{counts['pairhmm_fwd']['launches']} pair-kernel launches for {blocks} variants")
+    check(shape_ok, "the recaller's CSV on the card and on the host differ in their rows")
+    check(max(diffs, default=0.0) <= RECALLER_TOL + 1e-9,
+          f"the recaller's CSV is {max(diffs)} from the host's > {RECALLER_TOL}")
+    return res
+
+
+# --------------------------------------------------------------------------- trio
+
+
+def _genotype_columns(path):
+    """(sample names, records with each sample's GT) of a multi-sample VCF."""
+    names, recs = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#CHROM"):
+                names = line.rstrip("\n").split("\t")[9:]
+            elif not line.startswith("#"):
+                f = line.rstrip("\n").split("\t")
+                recs.append(dict(pos=int(f[1]) - 1, ref=f[3], alts=f[4].split(","),
+                                 gts=dict(zip(names, (s.split(":")[0] for s in f[9:])))))
+    return names, recs
+
+
+def _same_genotype(gt, want):
+    return sorted(gt.replace("|", "/").split("/")) == sorted(want.split("/"))
+
+
+def _gvcf_records(path):
+    """A single-sample GVCF's records: (pos, end, alts, GT, PL, line); a ref
+    block's end is its END, a variant record's pos + 1."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                f = line.rstrip("\n").split("\t")
+                info = dict(kv.split("=", 1) for kv in f[7].split(";") if "=" in kv)
+                fmt = dict(zip(f[8].split(":"), f[9].split(":")))
+                pos = int(f[1]) - 1
+                out.append((pos, int(info["END"]) if "END" in info else pos + 1,
+                            f[4].split(","), fmt["GT"], [int(x) for x in fmt["PL"].split(",")],
+                            line.rstrip("\n")))
+    return out
+
+
+def _gvcf_call(records, v):
+    """The planted SNV v in a single-sample GVCF: (its GT, v's alt as 1 and any
+    other alt as x, or 0/0 from a ref block; the alts of a variant record at
+    v, else None; whether v lies in a ref block whose PL is least at a
+    genotype other than 0/0)."""
+    for pos, end, alts, gt, pl, _ in records:
+        if pos == v.pos and any(a != "<NON_REF>" for a in alts):
+            names = {"0": "0", **{str(i + 1): "1" if a == v.alt else "x"
+                                  for i, a in enumerate(alts)}}
+            return ("/".join(names.get(a, a) for a in gt.replace("|", "/").split("/")), alts,
+                    False)
+        if pos <= v.pos < end:
+            return "0/0", None, min(pl) < pl[0]
+    return "missing", None, False
+
+
+def _mendelian(gts):
+    """True unless the child's called alleles cannot be one of the mother's
+    and one of the father's."""
+    alleles = {s: gts[s].replace("|", "/").split("/") for s in ("MOTHER", "FATHER", "CHILD")}
+    if any("." in a for a in alleles.values()):
+        return True
+    c = alleles["CHILD"]
+    return ((c[0] in alleles["MOTHER"] and c[1] in alleles["FATHER"])
+            or (c[1] in alleles["MOTHER"] and c[0] in alleles["FATHER"]))
+
+
+TRIO = dict(seed=0)  # utils/synthetic.write_trio at its defaults: 16,569 bp, 20,000 reads a sample
+
+
+def phase_trio(tmp):
+    """Joint genotyping of a trio through the port's CLI: HaplotypeCaller
+    -ERC GVCF --device cuda over the whole contig for each sample (the matrix
+    kernel), CombineGVCFs and GenotypeGVCFs, then GenomicsDBImport and
+    GenotypeGVCFs on gendb://; one -ERC GVCF run again under the profiler."""
+    from gatk_tpu_torch.calling import hc_engine
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "trio")
+    t0 = time.perf_counter()
+    trio = synthetic.write_trio(d, **TRIO)
+    write_s = time.perf_counter() - t0
+    gvcf, tool_s, counts, pairs = {}, {}, {}, {}
+    with keeping_launches("pairhmm_matrix") as kept:
+        for sm, bam in trio["bams"].items():
+            gvcf[sm] = os.path.join(d, f"{sm}.g.vcf")
+            argv = ["HaplotypeCaller", "-I", bam, "-R", trio["fasta"], "-ERC", "GVCF",
+                    "-O", gvcf[sm], "--device", "cuda"]
+            tool_s[f"HaplotypeCaller -ERC GVCF {sm}"], c, _ = _run_tool(
+                argv, counting_genotyped_pairs(hc_engine))
+            counts[sm] = c["pairhmm_matrix"]["launches"]
+            pairs[sm] = _pairs(c)
+            check(counts[sm] > 0, f"-ERC GVCF of {sm} never launched the matrix kernel")
+    check(kept["n"] > 0, "the trio's -ERC GVCF runs made no cartesian launch")
+    largest = _matrix_case(kept["args"][0], "the trio's largest launch")
+    profiled = _profile_tool(argv[:-3] + [gvcf[sm] + ".2", "--device", "cuda"])
+    vs = sum((["-V", gvcf[sm]] for sm in synthetic.TRIO_SAMPLES), [])
+    comb, gg, ws, gg_db = (os.path.join(d, f) for f in ("comb.g.vcf", "gg.vcf", "ws", "gg_db.vcf"))
+    tool_s["CombineGVCFs"], _, _ = _run_tool(["CombineGVCFs", *vs, "-R", trio["fasta"],
+                                              "-O", comb])
+    tool_s["GenotypeGVCFs"], _, _ = _run_tool(["GenotypeGVCFs", "-V", comb,
+                                               "-R", trio["fasta"], "-O", gg])
+    tool_s["GenomicsDBImport"], _, _ = _run_tool(["GenomicsDBImport", *vs,
+                                                  "--genomicsdb-workspace-path", ws])
+    tool_s["GenotypeGVCFs gendb"], _, _ = _run_tool(["GenotypeGVCFs", "-V", f"gendb://{ws}",
+                                                     "-R", trio["fasta"], "-O", gg_db])
+    with open(gg, "rb") as a, open(gg_db, "rb") as b:
+        gendb_same = a.read() == b.read()
+    _, recs = _genotype_columns(gg)
+    _, comb_recs = _genotype_columns(comb)
+    sample_recs = {sm: _gvcf_records(gvcf[sm]) for sm in synthetic.TRIO_SAMPLES}
+    wrong_snv, wrong_gvcf, fault_sites = [], [], []
+    indels_called, violations = {sm: 0 for sm in synthetic.TRIO_SAMPLES}, []
+    for k, v in enumerate(trio["variants"]):
+        want = {sm: trio["genotypes"][sm][k] for sm in synthetic.TRIO_SAMPLES}
+        if v.is_snv:
+            calls = {sm: _gvcf_call(sample_recs[sm], v) for sm in synthetic.TRIO_SAMPLES}
+            if not all(_same_genotype(calls[sm][0], want[sm]) for sm in calls):
+                wrong_gvcf.append((v.pos, {sm: c[0] for sm, c in calls.items()}, want))
+            at = [r for r in recs if r["pos"] == v.pos and r["ref"] == v.ref and v.alt in r["alts"]]
+            got = at[0]["gts"] if at else {}
+            # two faults of gatk_tpu, carried as-is (ROADMAP §3), let
+            # GenotypeGVCFs call a sample otherwise than its own GVCF does:
+            # the combined record gives a sample's variant record PL 0 for
+            # every genotype with an allele that record lacks
+            # (gvcf/combine.py:_remap_pls); and a ref block can carry the PL
+            # of a het, least at 0/NON_REF (calling/hc_engine.py, GVCF ref
+            # blocks). Such samples are reported, not held to the planted
+            # genotype in the joint VCF; their GVCF calls are held above.
+            alleles = [a for r in comb_recs if r["pos"] == v.pos for a in r["alts"]]
+            hit = {}
+            for sm, (_, alts, het_block) in calls.items():
+                if alts is not None and any(a not in alts for a in alleles):
+                    hit[sm] = "combine_pl"
+                elif het_block:
+                    hit[sm] = "ref_block_pl"
+            if hit:  # with each such sample's GVCF lines there, to hold against gatk_tpu's
+                fault_sites.append(dict(pos=v.pos, combined_alleles=alleles, samples=hit,
+                                        joint=got, planted=want, gvcf={
+                                            sm: [r[5] for r in sample_recs[sm]
+                                                 if r[0] <= v.pos < r[1]] for sm in hit}))
+            if not at or not all(sm in hit or _same_genotype(got[sm].replace(
+                    str(at[0]["alts"].index(v.alt) + 1), "1"), want[sm])
+                    for sm in synthetic.TRIO_SAMPLES):
+                wrong_snv.append(dict(pos=v.pos, joint=got, planted=want, gvcf={
+                    sm: [r for r in sample_recs[sm] if r[0] <= v.pos < r[1]]
+                    for sm in synthetic.TRIO_SAMPLES}, combined=[
+                    r for r in comb_recs if r["pos"] == v.pos]))
+        else:
+            near = [r for r in recs if abs(r["pos"] - v.pos) <= 20
+                    and len(r["ref"]) - len(r["alts"][0]) == len(v.ref) - len(v.alt)]
+            got = near[0]["gts"] if near else {}
+            for sm in synthetic.TRIO_SAMPLES:
+                indels_called[sm] += bool(near) and _same_genotype(got[sm], want[sm])
+        at = [r for r in recs if abs(r["pos"] - v.pos) <= 20]
+        violations += [v.pos for r in at if not _mendelian(r["gts"])]
+    n_indels = sum(not v.is_snv for v in trio["variants"])
+    res = dict(phase="trio", contig_len=trio["length"], reads_per_sample=trio["n_reads"],
+               write_s=write_s, tool_s=tool_s, wall_s=sum(tool_s.values()),
+               matrix_launches=counts, launches=sum(counts.values()), pairs=pairs,
+               counts={"pairhmm_matrix": {"launches": sum(counts.values())}},
+               records=len(recs), snvs_planted=sum(v.is_snv for v in trio["variants"]),
+               snvs_wrong=wrong_snv, snvs_wrong_in_gvcf=wrong_gvcf,
+               gatk_tpu_fault_sites=fault_sites, indels_planted=n_indels,
+               indels_called=indels_called,
+               mendelian_violations=violations, gendb_same_as_combine=gendb_same,
+               largest_launch=largest, profiled_sample=sm, **profiled)
+    emit(res)
+    check(not wrong_gvcf, f"trio: planted SNVs whose -ERC GVCF call is not the planted "
+                          f"genotype: {wrong_gvcf}")
+    check(not wrong_snv, f"trio: planted SNVs without their planted genotypes: {wrong_snv}")
+    check(all(n >= n_indels - 1 for n in indels_called.values()),
+          f"trio: indels called with their genotypes {indels_called} of {n_indels}")
+    check(not violations, f"trio: Mendelian violations at planted sites {violations}")
+    check(gendb_same, "GenotypeGVCFs on gendb:// differs from the CombineGVCFs path")
+    return res
+
+
+# --------------------------------------------------------------------------- preprocess
+
+PREPROCESS = dict(seed=0, n_duplicates=1000)  # write_sample's chrM-length sample
+# the read group's empirical mismatch quality: within this of the planted
+# error rate's phred (write_sample's err_rate 0.005: 23.0)
+BQSR_EMPIRICAL_Q_TOL = 1.0
+REF_OPS = (0, 2, 3, 7, 8)  # M, D, N, =, X: the ops that consume the reference
+
+
+def _duplicates_expected(bam_path):
+    """(reads, duplicates MarkDuplicates must flag, counted here): reads that
+    share a strand and an unclipped 5' end form a group, and all but one of
+    each group are duplicates."""
+    from gatk_tpu_torch.io import bam as bamio
+
+    groups = {}
+    n = 0
+    for r in bamio.BamReader(bam_path):
+        n += 1
+        ops, lens = r.cigar_ops.tolist(), r.cigar_lens.tolist()
+        lead = lens[0] if ops[0] == 4 else 0
+        trail = lens[-1] if ops[-1] == 4 else 0
+        ref_len = sum(ln for op, ln in zip(ops, lens) if op in REF_OPS)
+        rev = bool(r.flag & 16)
+        five = r.pos + ref_len + trail if rev else r.pos - lead
+        groups[(rev, five)] = groups.get((rev, five), 0) + 1
+    return n, sum(c - 1 for c in groups.values())
+
+
+def phase_preprocess(tmp):
+    """MarkDuplicates (with --metrics-file), BaseRecalibrator --known-sites,
+    ApplyBQSR (host code, each timed) on a chrM-length sample with planted
+    duplicates, then HaplotypeCaller --device cuda on the recalibrated BAM."""
+    import math
+
+    from gatk_tpu_torch.calling import hc_engine
+    from gatk_tpu_torch.io import bam as bamio
+    from gatk_tpu_torch.recal.report import parse_report
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "pre")
+    t0 = time.perf_counter()
+    sample = synthetic.write_sample(d, **PREPROCESS)
+    write_s = time.perf_counter() - t0
+    md, metrics, table, bqsr, out = (os.path.join(d, f) for f in (
+        "md.bam", "md.metrics", "recal.table", "bqsr.bam", "out.vcf"))
+    tool_s = {}
+    tool_s["MarkDuplicates"], _, _ = _run_tool(["MarkDuplicates", "-I", sample["bam"], "-O", md,
+                                           "-M", metrics])
+    tool_s["BaseRecalibrator"], _, _ = _run_tool([
+        "BaseRecalibrator", "-I", md, "-R", sample["fasta"], "--known-sites",
+        sample["known_sites"], "-O", table])
+    tool_s["ApplyBQSR"], _, _ = _run_tool(["ApplyBQSR", "-I", md, "-R", sample["fasta"],
+                                      "--bqsr-recal-file", table, "-O", bqsr])
+    argv = ["HaplotypeCaller", "-I", bqsr, "-R", sample["fasta"], "-O", out, "--device", "cuda"]
+    with keeping_launches("pairhmm_fwd") as kept:
+        tool_s["HaplotypeCaller"], counts, _ = _run_tool(argv, counting_genotyped_pairs(hc_engine))
+    flagged = {r.name for r in bamio.BamReader(md) if r.flag & 1024}
+    n_reads, expected = _duplicates_expected(sample["bam"])
+    missed_dups = sorted(set(sample["duplicates"]) - flagged)
+    rows = {t[0]: t for t in parse_report(open(table).read())}["RecalTable0"]
+    cols = [c for c, _ in rows[2]]
+    mism = [dict(zip(cols, r)) for r in rows[3] if dict(zip(cols, r))["EventType"] == "M"]
+    planted_q = -10 * math.log10(0.005)
+    emp_q = [float(r["EmpiricalQuality"]) for r in mism]
+    recs = _records(out)
+    missed, indels = _germline_gates(sample, recs)
+    res = dict(phase="preprocess", reads=n_reads, write_s=write_s, tool_s=tool_s,
+               wall_s=sum(tool_s.values()), duplicates_planted=len(sample["duplicates"]),
+               duplicates_flagged=len(flagged), duplicates_expected=expected,
+               planted_duplicates_missed=len(missed_dups), empirical_q=emp_q,
+               planted_error_q=planted_q, records=len(recs),
+               snvs_called=sum(v.is_snv for v in sample["variants"]) - len(missed),
+               indels_called=len(indels), launches=counts["pairhmm_fwd"]["launches"],
+               pairs=_pairs(counts), counts=counts, largest_launch=_largest_launch(
+                   kept, "HaplotypeCaller's largest launch on the recalibrated BAM"))
+    emit(res)
+    check(not missed_dups, f"{len(missed_dups)} planted duplicates not flagged")
+    check(len(flagged) == expected,
+          f"MarkDuplicates flagged {len(flagged)} reads, the groups hold {expected} duplicates")
+    check(len(emp_q) == 1 and abs(emp_q[0] - planted_q) <= BQSR_EMPIRICAL_Q_TOL,
+          f"empirical quality {emp_q} is not within {BQSR_EMPIRICAL_Q_TOL} of {planted_q:.2f}")
+    check(counts["pairhmm_fwd"]["launches"] > 0,
+          "HaplotypeCaller on the recalibrated BAM never launched the pair kernel")
+    check(not missed, f"HaplotypeCaller on the recalibrated BAM missed planted SNVs: {missed}")
     return res
 
 
@@ -1044,20 +1443,27 @@ def _hmm_bound(S, T, C):
                 ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
 
 
+# more states than a lane group holds: a warp a vector, ceil(C / 32) states a
+# lane (2, 2 full, 4 with the last part full, 9 with one state in the last)
+HMM_WIDE_STATES = (33, 64, 100, 257)
+
+
 def _hmm_edge_cases(dev, chunk):
     """(name, log_em, log_pi, stay) at the kernel's edges: one interval, a
     chain break at every interval (stay 0), stay 1 (off-diagonal log
     transitions -inf), one state on every lane (C = 32) and one state (C = 1);
     then the chunks' edges: T = L, L + 1, 2 L + 1 and a T - 1 that is not a
-    multiple of L (L = chunk)."""
+    multiple of L (L = chunk); then C of HMM_WIDE_STATES over several chunks."""
     rng = np.random.default_rng(11)
     out = []
+    wide = tuple((f"C={C}, T=700", 3, 700, C, None) for C in HMM_WIDE_STATES)
     for name, S, T, C, stay in (("T=1", 4, 1, 6, np.zeros(0)), ("break everywhere", 4, 64, 6, 0.0),
                                 ("stay=1", 4, 64, 6, 1.0), ("C=32", 3, 64, 32, 0.9),
                                 ("C=1", 2, 64, 1, 0.9), ("T=L", 4, chunk, 6, None),
                                 ("T=L+1", 4, chunk + 1, 6, None),
                                 ("T=2L+1", 4, 2 * chunk + 1, 6, None),
-                                ("T=1000", 4, 1000, 6, None), ("C=13, T=700", 3, 700, 13, None)):
+                                ("T=1000", 4, 1000, 6, None),
+                                ("C=13, T=700", 3, 700, 13, None)) + wide:
         base = rng.integers(0, C, (S, 1, 1))
         pi = np.where(np.arange(C)[None, None, :] == base, 1.0 - (C - 1) * 1e-6, 1e-6)
         if stay is None:  # coherent, as on the shard, with a chain break
@@ -1142,8 +1548,12 @@ def phase_cnv_hmm(dev, model):
         warmup=1)
     edges = []
     for name, *edge in _hmm_edge_cases(dev, chunk):
-        edges.append(dict(case=name, shape=list(edge[0].shape),
-                          **_hmm_errors(_kernels.cnv_hmm(*edge), edge, chunk)))
+        e = dict(case=name, shape=list(edge[0].shape),
+                 **_hmm_errors(_kernels.cnv_hmm(*edge), edge, chunk))
+        if edge[0].shape[-1] in HMM_WIDE_STATES:  # a pass past 32 states, timed
+            e["kernel_ms"] = median_ms(lambda: _kernels.cnv_hmm(*edge), reps=10, warmup=2)
+            e.update(_hmm_bound(*edge[0].shape))
+        edges.append(e)
     kernel_ms = median_ms(lambda: _kernels.cnv_hmm(*args), reps=30, warmup=3)
     sweep = {L: median_ms(lambda: _kernels.cnv_hmm(*args, chunk=L), reps=20, warmup=3)
              for L in HMM_CHUNK_SWEEP}
@@ -1298,8 +1708,12 @@ def main():
         emit(dict(phase="sample", contig_len=sample["length"], reads=sample["n_reads"],
                   variants=len(sample["variants"]), write_s=time.perf_counter() - t0))
         hc, kept_hc = phase_hc(sample, tmp)
+        ramped = phase_ramped(sample, tmp, os.path.join(tmp, "out.vcf"))
+        recaller = phase_recaller(sample, tmp)
         gvcf, kept_gvcf = phase_gvcf(sample, tmp)
+        trio = phase_trio(tmp)
         m2 = phase_mutect2(tmp)
+        pre = phase_preprocess(tmp)
         gcnv, gcnv_model = phase_gcnv(dev, tmp, sample)
         hmm = phase_cnv_hmm(dev, gcnv_model)
         del gcnv_model
@@ -1314,9 +1728,11 @@ def main():
     def by_path(name):
         return {path: r["counts"][name]["launches"]
                 for path, r in (("hc", hc), ("gvcf", gvcf), ("mutect2", m2), ("variants", var),
-                                ("gcnv", gcnv)) if name in r["counts"]}
+                                ("gcnv", gcnv), ("ramped", ramped), ("recaller", recaller),
+                                ("trio", trio), ("preprocess", pre)) if name in r["counts"]}
 
     fwd_err = max(k["max_abs_err_bench"], k["max_abs_err_ragged"], main_launch["max_abs_err"],
+                  *(r["largest_launch"]["max_abs_err"] for r in (m2, ramped, pre)),
                   *(v["max_abs_err_ragged"] for v in var["variants"] if not v["hap_n_mismatch"]))
     hapn_err = max(max(v["max_abs_err_bench"], v["max_abs_err_ragged"])
                    for v in var["variants"] if v["hap_n_mismatch"])
@@ -1335,7 +1751,8 @@ def main():
         dict(name="pairhmm_matrix", route="cuda", source=src + "pairhmm_matrix.cu",
              replaces=f"{tpu}:151 (_pairhmm_matrix_kernel)",
              launches=gvcf["counts"]["pairhmm_matrix"]["launches"],
-             launches_by_path=by_path("pairhmm_matrix"), max_abs_err=mat["max_abs_err"],
+             launches_by_path=by_path("pairhmm_matrix"),
+             max_abs_err=max(mat["max_abs_err"], trio["largest_launch"]["max_abs_err"]),
              ms=gv["kernel_ms"], plain_ms=gv["plain_ms"], bound_ms=gv["bound_ms"],
              bound_by=gv["bound_by"], library_ms=None),
         dict(name="pairhmm_fwd_hap_n_mismatch", route="cuda", source=src + "pairhmm_fwd.cu",
@@ -1360,7 +1777,9 @@ def main():
     ]
     for kd in kernels:
         kd["max_abs_diff"] = kd["max_abs_err"]
-    print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
+    total_s = time.perf_counter() - t_start
+    emit(dict(phase="total", seconds=total_s))
+    print(f"total {total_s:.1f} s", file=sys.stderr)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

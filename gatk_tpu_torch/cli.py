@@ -81,6 +81,8 @@ def _register_builtin_tools():
     from .tools import hc_tool, mutect_tool  # noqa: F401
     from .tools import cnv_tools  # noqa: F401
     from .tools import somatic_cnv_tools  # noqa: F401
+    from .tools import gvcf_tools, bqsr_tools, metrics_tools  # noqa: F401
+    from .tools import ramped_hc_tool, variant_recalling_tool  # noqa: F401
 
 
 _register_builtin_tools()

@@ -47,6 +47,17 @@
 // one or two log-sum-exps and a logaddexp a state. W (8 or 32) is a template
 // parameter, so every loop over the states is unrolled.
 //
+// More than 32 states: the same three phases, with a warp (32 lanes) in each
+// of A's recursions as well as in B and C, and K = ceil(C / 32) states a lane
+// (state c in lane c mod 32), the loops over a lane's states running at run
+// time. The vectors are held in the global scratch, each lane touching only
+// its own states (B's start vector, which every lane reads whole, is written
+// before a __syncwarp): A's recursion runs in place in its row of the
+// transfer, C's in its rows of a (L + 1) x CW buffer a direction, CW = 32 K,
+// so that neither registers nor shared memory bound C. The arithmetic is the
+// groups' (the same maxima, sums and logaddexps a state), in other orders of
+// summation.
+//
 // Arithmetic: every vector is normalised (less its log-sum-exp over the
 // states; a start vector less its max) at every step, and a transfer's rows
 // keep their log-scales apart, applied relative to their largest in B: one
@@ -69,7 +80,7 @@
 
 namespace {
 
-constexpr int kMaxStates = 32;
+constexpr int kGroupStates = 32;  // the most states of the group instances (a lane a state)
 constexpr int kPrefetch = 8;       // steps a group's loads run ahead of its recursion (C)
 constexpr int kThreads = 128;      // threads of an A or B block
 constexpr int kPostThreads = 64;   // a C block: the forward warp and the backward warp
@@ -275,8 +286,15 @@ __device__ float group_run(const Group<W>& g, int lane, int C, float x,
 
 __host__ __device__ inline int num_chunks(int T, int L) { return T <= 1 ? 1 : (T - 2) / L + 1; }
 
+// Floats a vector over the states takes in the scratch: the group's W (8 or
+// 32) up to 32 states, 32 K above.
+__host__ __device__ inline int state_width(int C) {
+  return C <= 8 ? 8 : C <= kGroupStates ? 32 : (C + 31) / 32 * 32;
+}
+
 // Scratch layout, floats: rows [2][S][P][C][W], acc [2][S][P][C],
-// starts [2][S][P][W], log stay [T - 1], log(1 - stay) [T - 1].
+// starts [2][S][P][W], log stay [T - 1], log(1 - stay) [T - 1]; W is
+// state_width(C). Past 32 states WideScratch's buffers follow.
 struct Scratch {
   float* rows;
   float* acc;
@@ -508,6 +526,235 @@ int launch(const float* em, const float* lp, const float* st, float* out, float*
   return 0;
 }
 
+// ---- more than 32 states: a warp (a Group<32>) holds a vector, lane l the
+// states l, l + 32, ...
+
+// group_step for a vector x over C states in memory, in place (em: the
+// emission row, lp: interval p's row of log priors); the lane updates its own
+// states only.
+template <bool kFwd>
+__device__ void wide_step(float* x, const float* __restrict__ em, const float* __restrict__ lp,
+                          float ls, float lb, int C, int lane, float& acc) {
+  const Group<32> grp(lane);
+  float mu = -INFINITY, mv = -INFINITY;
+  for (int c = lane; c < C; c += 32) {
+    const float u = x[c] + em[c];
+    x[c] = u;
+    mu = fmaxf(mu, u);
+    if (!kFwd) mv = fmaxf(mv, lp[c] + u);
+  }
+  mu = finite_or_zero(grp.max(mu));
+  if (!kFwd) mv = finite_or_zero(grp.max(mv));
+  float su = 0.0f, sv = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    su += fexp(x[c] - mu);
+    if (!kFwd) sv += fexp(lp[c] + x[c] - mv);
+  }
+  const float n = finite_or_zero(flog(grp.sum(su)) + mu);
+  const float w = kFwd ? 0.0f : flog(grp.sum(sv)) + mv - n;
+  acc += n;
+  for (int c = lane; c < C; c += 32)
+    x[c] = logaddexp(ls + (x[c] - n), lb + (kFwd ? lp[c] : w));
+}
+
+// Scratch beyond Scratch's, floats: B's scaled vectors xs [2][S][CW], then
+// C's rows [S][P][2][L + 1][CW].
+struct WideScratch {
+  float* xs;
+  float* vals;
+  __host__ __device__ WideScratch(float* base, int S, int T, int P, int C, int CW)
+      : xs(base + scratch_floats(S, T, C, P, CW)),
+        vals(xs + static_cast<size_t>(2) * S * CW) {}
+};
+
+__host__ __device__ inline long long wide_scratch_floats(int S, int T, int C, int P, int L) {
+  const int CW = state_width(C);
+  return scratch_floats(S, T, C, P, CW) + 2LL * S * CW + 2LL * S * P * (L + 1) * CW;
+}
+
+// A, a warp a row (the layout of transfer_kernel's rows, CW wide).
+__global__ void __launch_bounds__(kThreads)
+    transfer_wide_kernel(const float* __restrict__ log_em, const float* __restrict__ log_pi,
+                         float* scratch, int S, int T, int C, int L, int P) {
+  const long long g = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  const long long per_dir = static_cast<long long>(S) * (P - 1) * C;
+  if (g >= 2 * per_dir) return;
+  const int dir = static_cast<int>(g / per_dir);
+  long long r = g - dir * per_dir;
+  const int i = static_cast<int>(r % C);
+  r /= C;
+  const int kk = static_cast<int>(r % (P - 1));
+  const int s = static_cast<int>(r / (P - 1));
+  const int k = dir == 0 ? kk : kk + 1;
+  const int begin = k * L, end = min(begin + L, T - 1);
+  const int CW = state_width(C);
+  const Scratch sc(scratch, S, T, P, C, CW);
+  const size_t base = static_cast<size_t>(s) * T * C;
+  const float* em = log_em + base;
+  const float* lp = log_pi + base;
+  const size_t m = (static_cast<size_t>(dir) * S + s) * P + k;
+  float* x = sc.rows + (m * C + i) * CW;
+  for (int c = lane; c < C; c += 32) x[c] = c == i ? 0.0f : -INFINITY;
+  float acc = 0.0f;
+  if (dir == 0) {
+    for (int p = begin + 1; p <= end; ++p)
+      wide_step<true>(x, em + (p - 1) * C, lp + p * C, sc.log_stay[p - 1], sc.log_move[p - 1], C,
+                      lane, acc);
+  } else {
+    for (int p = end; p > begin; --p)
+      wide_step<false>(x, em + p * C, lp + p * C, sc.log_stay[p - 1], sc.log_move[p - 1], C, lane,
+                       acc);
+  }
+  if (lane == 0) sc.acc[m * C + i] = acc;
+}
+
+// B, a warp a sample and direction: starts_kernel's scan, each lane taking
+// the states j = lane, lane + 32, ... of the new vector, every lane reading
+// the whole scaled vector xs.
+__global__ void __launch_bounds__(kThreads)
+    starts_wide_kernel(const float* __restrict__ log_pi, float* scratch, int S, int T, int C, int L,
+                       int P) {
+  const int g = (blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (g >= 2 * S) return;
+  const int dir = g / S, s = g - dir * S;
+  const int CW = state_width(C);
+  const Scratch sc(scratch, S, T, P, C, CW);
+  const WideScratch wc(scratch, S, T, P, C, CW);
+  const size_t ds = static_cast<size_t>(dir) * S + s;
+  const size_t base = static_cast<size_t>(s) * T * C;
+  float* xs = wc.xs + ds * CW;
+  const Group<32> grp(lane);
+  int k = dir == 0 ? 0 : P - 1;
+  const int dk = dir == 0 ? 1 : -1;
+  float* x = sc.starts + (ds * P + k) * CW;
+  float mx = -INFINITY;
+  for (int c = lane; c < C; c += 32) {
+    x[c] = dir == 0 ? log_pi[base + c] : 0.0f;
+    mx = fmaxf(mx, x[c]);
+  }
+  mx = finite_or_zero(grp.max(mx));
+  for (int c = lane; c < C; c += 32) x[c] -= mx;
+  for (int q = 1; q < P; ++q) {
+    const size_t m = ds * P + (dir == 0 ? q - 1 : P - q);
+    const float* acc = sc.acc + m * C;
+    const float* rows = sc.rows + m * C * CW;
+    float am = -INFINITY;
+    for (int c = lane; c < C; c += 32) am = fmaxf(am, acc[c]);
+    am = grp.max(am);
+    for (int c = lane; c < C; c += 32) xs[c] = x[c] + (acc[c] - am);
+    __syncwarp();
+    k += dk;
+    x = sc.starts + (ds * P + k) * CW;
+    float xm = -INFINITY;
+    for (int j = lane; j < C; j += 32) {
+      float tm = -INFINITY;
+      for (int i = 0; i < C; ++i) tm = fmaxf(tm, xs[i] + rows[static_cast<size_t>(i) * CW + j]);
+      tm = finite_or_zero(tm);
+      float sum = 0.0f;
+      for (int i = 0; i < C; ++i) sum += fexp(xs[i] + rows[static_cast<size_t>(i) * CW + j] - tm);
+      x[j] = flog(sum) + tm;
+      xm = fmaxf(xm, x[j]);
+    }
+    xm = finite_or_zero(grp.max(xm));
+    for (int j = lane; j < C; j += 32) x[j] -= xm;
+    __syncwarp();  // every lane has read xs before it is written again
+  }
+}
+
+// C, a block of two warps a chunk: posterior_kernel's recursions into the
+// chunk's rows of the scratch, then its normalisation, a warp an interval.
+__global__ void __launch_bounds__(kPostThreads)
+    posterior_wide_kernel(const float* __restrict__ log_em, const float* __restrict__ log_pi,
+                          float* scratch, float* __restrict__ out, int S, int T, int C, int L,
+                          int P) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int idx = blockIdx.x;
+  const int s = idx / P, k = idx - s * P;
+  const int begin = k * L, end = min(begin + L, T - 1);
+  const bool last = k == P - 1;
+  const int CW = state_width(C);
+  const Scratch sc(scratch, S, T, P, C, CW);
+  const WideScratch wc(scratch, S, T, P, C, CW);
+  const size_t base = static_cast<size_t>(s) * T * C;
+  const float* em = log_em + base;
+  const float* lp = log_pi + base;
+  float* alpha = wc.vals + static_cast<size_t>(idx) * 2 * (L + 1) * CW;  // y
+  const Group<32> grp(lane);
+  float* beta = alpha + static_cast<size_t>(L + 1) * CW;
+  float acc = 0.0f;
+  if (warp == 0) {
+    const float* x = sc.starts + (static_cast<size_t>(s) * P + k) * CW;
+    for (int c = lane; c < C; c += 32) alpha[c] = x[c];
+    const int n = end - begin - (last ? 0 : 1);
+    for (int j = 0; j < n; ++j) {
+      const int p = begin + 1 + j;
+      float* y = alpha + static_cast<size_t>(j + 1) * CW;
+      for (int c = lane; c < C; c += 32) y[c] = y[c - CW];
+      wide_step<true>(y, em + (p - 1) * C, lp + p * C, sc.log_stay[p - 1], sc.log_move[p - 1], C,
+                      lane, acc);
+    }
+  } else {
+    const float* x = sc.starts + ((static_cast<size_t>(S) + s) * P + k) * CW;
+    if (last) {
+      float* b = beta + static_cast<size_t>(end - begin) * CW;
+      for (int c = lane; c < C; c += 32) b[c] = x[c];
+    }
+    for (int j = 0; j < end - begin; ++j) {
+      const int p = end - j;
+      float* b = beta + static_cast<size_t>(end - begin - 1 - j) * CW;
+      for (int c = lane; c < C; c += 32) b[c] = x[c];
+      wide_step<false>(b, em + p * C, lp + p * C, sc.log_stay[p - 1], sc.log_move[p - 1], C, lane,
+                       acc);
+      x = b;
+    }
+  }
+  __syncthreads();
+  const int nt = end - begin + (last ? 1 : 0);
+  const size_t at = (static_cast<size_t>(s) * T + begin) * C;
+  for (int u = warp; u < nt; u += kPostThreads / 32) {
+    const float* a = alpha + static_cast<size_t>(u) * CW;
+    const float* b = beta + static_cast<size_t>(u) * CW;
+    const float* e = log_em + at + static_cast<size_t>(u) * C;
+    float m = -INFINITY;
+    for (int c = lane; c < C; c += 32) m = fmaxf(m, a[c] + b[c] + e[c]);
+    m = finite_or_zero(grp.max(m));
+    float sum = 0.0f;
+    for (int c = lane; c < C; c += 32) sum += fexp(a[c] + b[c] + e[c] - m);
+    const float l = flog(grp.sum(sum)) + m;
+    for (int c = lane; c < C; c += 32) out[at + static_cast<size_t>(u) * C + c] = e[c] + (a[c] + b[c] - l);
+  }
+}
+
+int launch_wide(const float* em, const float* lp, const float* st, float* out, float* scratch,
+                int S, int T, int C, int L, cudaStream_t stream, int* launched) {
+  const int P = num_chunks(T, L);
+  const Scratch sc(scratch, S, T, P, C, state_width(C));
+  cudaError_t err;
+  if (T > 1) {
+    log_stay_kernel<<<(T - 1 + 255) / 256, 256, 0, stream>>>(st, sc.log_stay, sc.log_move, T - 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
+  }
+  if (P > 1) {
+    const long long threads = 2LL * S * (P - 1) * C * 32;
+    transfer_wide_kernel<<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads, 0,
+                           stream>>>(em, lp, scratch, S, T, C, L, P);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
+  }
+  starts_wide_kernel<<<(2 * S * 32 + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      lp, scratch, S, T, C, L, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  posterior_wide_kernel<<<static_cast<unsigned>(S * P), kPostThreads, 0, stream>>>(
+      em, lp, scratch, out, S, T, C, L, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int err) {
@@ -516,7 +763,9 @@ extern "C" const char* kernel_error_string(int err) {
 
 // Floats of scratch the pass needs (S, T, C as for cnv_hmm; L the chunk).
 extern "C" long long cnv_hmm_scratch(int S, int T, int C, int L) {
-  return scratch_floats(S, T, C, num_chunks(T, L), C <= 8 ? 8 : 32);
+  const int P = num_chunks(T, L);
+  return C <= kGroupStates ? scratch_floats(S, T, C, P, state_width(C))
+                           : wide_scratch_floats(S, T, C, P, L);
 }
 
 // Launches the pass's kernels on `stream` (log_stay when T > 1, transfer
@@ -527,7 +776,7 @@ extern "C" long long cnv_hmm_scratch(int S, int T, int C, int L) {
 extern "C" int cnv_hmm(const void* log_em, const void* log_pi, const void* stay, void* out,
                        void* scratch, int S, int T, int C, int L, void* stream, int* launched) {
   *launched = 0;
-  if (S <= 0 || T <= 0 || C <= 0 || C > kMaxStates || L <= 0)
+  if (S <= 0 || T <= 0 || C <= 0 || L <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* em = static_cast<const float*>(log_em);
   const auto* lp = static_cast<const float*>(log_pi);
@@ -535,6 +784,7 @@ extern "C" int cnv_hmm(const void* log_em, const void* log_pi, const void* stay,
   auto* o = static_cast<float*>(out);
   auto* sc = static_cast<float*>(scratch);
   auto strm = static_cast<cudaStream_t>(stream);
-  return C <= 8 ? launch<8>(em, lp, st, o, sc, S, T, C, L, strm, launched)
-                : launch<32>(em, lp, st, o, sc, S, T, C, L, strm, launched);
+  if (C <= 8) return launch<8>(em, lp, st, o, sc, S, T, C, L, strm, launched);
+  if (C <= kGroupStates) return launch<32>(em, lp, st, o, sc, S, T, C, L, strm, launched);
+  return launch_wide(em, lp, st, o, sc, S, T, C, L, strm, launched);
 }

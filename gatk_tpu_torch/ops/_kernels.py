@@ -20,7 +20,9 @@ and the wrappers pass it as it is.
 The copy-number HMM kernels (csrc/cnv_hmm.cu, wrapper `cnv_hmm_launch`, which
 also returns how many kernels the pass launched, and `cnv_hmm`) run the
 forward-backward pass of the gCNV denoising model in chunks of CNV_HMM_CHUNK
-steps, parallel over the intervals; ops/cnv_hmm.py holds the sequential plain
+steps, parallel over the intervals, for any number of states C (a group of
+8 or 32 lanes a vector, a lane a state, up to 32; a warp a vector and
+ceil(C / 32) states a lane above); ops/cnv_hmm.py holds the sequential plain
 version and the plain version of the chunked association. The chunked pass
 rounds otherwise than the sequential one: it is held to 1e-3 of the float64
 sequential pass and to 1e-4 plus two float32 rounding steps of the value of
@@ -302,7 +304,6 @@ def plan_on_card(pools, ri: torch.Tensor | None = None, hi: torch.Tensor | None 
     return scratch[:n], scratch[2 * n : 2 * n + len(GROUP_WIDTHS) + 1]
 
 
-CNV_HMM_MAX_STATES = 32  # csrc/cnv_hmm.cu: kMaxStates (one lane a state)
 CNV_HMM_CHUNK = 128  # steps a chunk of the HMM pass, picked by a sweep on the card
 
 
@@ -321,8 +322,7 @@ def cnv_hmm_launch(log_em: torch.Tensor, log_pi: torch.Tensor, stay: torch.Tenso
     _check(log_em.dim() == 3 and log_pi.shape == log_em.shape, what,
            "log_em and log_pi must be (S, T, C) of one shape")
     S, T, C = log_em.shape
-    _check(S > 0 and T > 0 and 0 < C <= CNV_HMM_MAX_STATES, what,
-           f"needs S, T > 0 and 1 <= C <= {CNV_HMM_MAX_STATES}: {(S, T, C)}")
+    _check(S > 0 and T > 0 and C > 0, what, f"needs S, T, C > 0: {(S, T, C)}")
     _check(stay.shape == (T - 1,), what, f"stay must be (T - 1,) = ({T - 1},)")
     _check(chunk >= 1, what, f"chunk must be >= 1: {chunk}")
     for t in (log_em, log_pi, stay):

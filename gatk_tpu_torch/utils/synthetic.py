@@ -4,10 +4,13 @@ numpy.
 
 write_sample: a diploid germline sample for HaplotypeCaller (one contig, a
 heterozygous alternate haplotype with planted SNVs and short indels, single-end
-reads drawn from both haplotypes).
+reads drawn from both haplotypes), its planted variants as a known-sites VCF,
+and optionally planted duplicate reads (for MarkDuplicates and BQSR).
+write_trio: a mother, a father and their child over one reference, with
+Mendelian genotypes at the planted sites, and a pedigree file.
 write_tumor_sample: a tumor-only sample for Mutect2 (the same contig and seed
 scheme, germline het SNVs plus somatic SNVs and short indels at allele
-fractions 0.1-0.3).
+fractions 0.1-0.3), and optionally its matched normal.
 write_cnv_cohort: a germline CNV cohort as read-count TSVs (CollectReadCounts'
 format) and contig-ploidy priors, with XX and XY samples and planted
 deletions and duplications.
@@ -150,13 +153,40 @@ def _write_bam(path, contig, length, reads, sample):
     writer.close()
 
 
+def _write_sites_vcf(path, contig, length, variants):
+    """The planted variants as a sites-only VCF (a --known-sites resource)."""
+    with open(path, "w") as fh:
+        fh.write(f"##fileformat=VCFv4.2\n##contig=<ID={contig},length={length}>\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for v in variants:
+            fh.write(f"{contig}\t{v.pos + 1}\t.\t{v.ref}\t{v.alt}\t.\tPASS\t.\n")
+    return path
+
+
+def _duplicate(read, name):
+    """A duplicate of `read`: the same start, strand, cigar and bases, each
+    base quality 5 lower (so a lower sum of qualities >= 15 than the original's)."""
+    quals = np.maximum(read.quals.astype(np.int16) - 5, 2).astype(np.uint8)
+    return Read(name=name, flag=read.flag, ref_id=read.ref_id, pos=read.pos, mapq=read.mapq,
+                cigar_ops=read.cigar_ops.copy(), cigar_lens=read.cigar_lens.copy(),
+                bases=read.bases.copy(), quals=quals, mate_ref_id=-1, mate_pos=-1, tlen=0,
+                tags=dict(read.tags))
+
+
 def write_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=20000, read_len=151,
                  n_snv=24, n_indel=6, min_gap=400, err_rate=0.005, qual_range=(20, 40),
-                 sample="SYN1"):
-    """Write <out_dir>/ref.fa (+ .fai) and <out_dir>/sample.bam.
+                 sample="SYN1", n_duplicates=0):
+    """Write <out_dir>/ref.fa (+ .fai), <out_dir>/sample.bam and
+    <out_dir>/known_sites.vcf (the planted variants, sites only).
 
-    Returns dict(fasta=path, bam=path, contig=contig, length=length,
-    variants=[Planted], n_reads=n_reads)."""
+    With n_duplicates > 0, that many distinct reads are drawn after the others
+    and each gets a duplicate (named d<k>) as _duplicate makes it, so
+    MarkDuplicates flags every duplicate; the reads drawn before are the same
+    as with n_duplicates = 0.
+
+    Returns dict(fasta=path, bam=path, known_sites=path, contig=contig,
+    length=length, variants=[Planted], n_reads=reads written,
+    duplicates=[names of the planted duplicates])."""
     rng = np.random.default_rng(seed)
     ref = _ACGT[rng.integers(0, 4, length)]
     variants = _plant(rng, ref, n_snv, n_indel, min_gap, margin=300)
@@ -171,17 +201,82 @@ def write_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=20000, re
         s = int(rng.integers(0, len(src) - read_len + 1))
         reads.append(_make_read(rng, k, src[s : s + read_len], where[s : s + read_len],
                                 err_rate, qual_range))
+    if n_duplicates:
+        picked = rng.choice(n_reads, n_duplicates, replace=False)
+        reads += [_duplicate(reads[int(i)], f"d{k:06d}") for k, i in enumerate(picked)]
     path = os.path.join(out_dir, "sample.bam")
+    duplicates = [r.name for r in reads[n_reads:]]
     _write_bam(path, contig, length, reads, sample)
-    return dict(fasta=fasta, bam=path, contig=contig, length=length, variants=variants,
-                n_reads=n_reads)
+    known = _write_sites_vcf(os.path.join(out_dir, "known_sites.vcf"), contig, length, variants)
+    return dict(fasta=fasta, bam=path, known_sites=known, contig=contig, length=length,
+                variants=variants, n_reads=len(reads), duplicates=duplicates)
+
+
+# which parental haplotypes carry the alt allele at a planted trio site:
+# (mother's transmitted, mother's other, father's transmitted, father's
+# other); the child carries the two transmitted ones. Every pattern has a het
+# parent; the child is hom-alt, hom-ref, het, hom-ref, het, het, hom-ref, so
+# any three sites in a row hold each of its genotypes.
+TRIO_PATTERNS = ((1, 0, 1, 0), (0, 1, 0, 0), (1, 0, 0, 0), (0, 1, 0, 1), (1, 0, 0, 1),
+                 (0, 0, 1, 0), (0, 0, 0, 1))
+TRIO_SAMPLES = ("MOTHER", "FATHER", "CHILD")
+
+
+def write_trio(out_dir, seed=0, contig="chrM", length=16569, n_reads=20000, read_len=151,
+               n_snv=24, n_indel=6, min_gap=400, err_rate=0.005, qual_range=(20, 40)):
+    """Write <out_dir>/ref.fa (+ .fai), one BAM a sample (<sample>.bam, SM
+    MOTHER, FATHER and CHILD, n_reads each) and <out_dir>/trio.ped.
+
+    The planted SNVs and indels (as write_sample plants them) sit on the
+    parents' haplotypes by TRIO_PATTERNS, taken in turn;
+    the child carries one haplotype of each parent, so its genotype follows
+    Mendel's rules at every site, and is hom-alt at some and hom-ref at others.
+    Each sample's reads come from its two haplotypes with probability 0.5.
+
+    Returns dict(fasta=path, bams={sample: path}, ped=path, contig=contig,
+    length=length, variants=[Planted], genotypes={sample: ["0/1", ...] per
+    variant}, n_reads=n_reads)."""
+    rng = np.random.default_rng(seed)
+    ref = _ACGT[rng.integers(0, 4, length)]
+    variants = _plant(rng, ref, n_snv, n_indel, min_gap, margin=300)
+    carry = np.array([TRIO_PATTERNS[k % len(TRIO_PATTERNS)]
+                      for k in range(len(variants))])  # (variants, 4 haplotypes)
+    haps = [_alt_haplotype(ref, [v for v, c in zip(variants, carry[:, h]) if c])
+            for h in range(4)]
+    of_sample = {"MOTHER": (0, 1), "FATHER": (2, 3), "CHILD": (0, 2)}
+    gt = {0: "0/0", 1: "0/1", 2: "1/1"}
+    genotypes = {sm: [gt[int(carry[k, a] + carry[k, b])] for k in range(len(variants))]
+                 for sm, (a, b) in of_sample.items()}
+
+    os.makedirs(out_dir, exist_ok=True)
+    fasta = _write_fasta(out_dir, contig, ref)
+    bams = {}
+    for sm in TRIO_SAMPLES:
+        reads = []
+        for k in range(n_reads):
+            src, where = haps[of_sample[sm][int(rng.random() < 0.5)]]
+            s = int(rng.integers(0, len(src) - read_len + 1))
+            reads.append(_make_read(rng, k, src[s : s + read_len], where[s : s + read_len],
+                                    err_rate, qual_range))
+        bams[sm] = os.path.join(out_dir, f"{sm.lower()}.bam")
+        _write_bam(bams[sm], contig, length, reads, sm)
+    ped = os.path.join(out_dir, "trio.ped")
+    with open(ped, "w") as fh:
+        fh.write("FAM\tFATHER\t0\t0\t1\t0\nFAM\tMOTHER\t0\t0\t2\t0\n"
+                 "FAM\tCHILD\tFATHER\tMOTHER\t1\t0\n")
+    return dict(fasta=fasta, bams=bams, ped=ped, contig=contig, length=length,
+                variants=variants, genotypes=genotypes, n_reads=n_reads)
 
 
 def write_tumor_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=20000,
                        read_len=151, n_germline=8, n_somatic_snv=12, n_somatic_indel=4,
                        af_range=(0.1, 0.3), min_gap=400, err_rate=0.005, qual_range=(20, 40),
-                       sample="TUMOR"):
-    """Write <out_dir>/ref.fa (+ .fai) and <out_dir>/tumor.bam: a tumor-only sample.
+                       sample="TUMOR", n_normal_reads=0):
+    """Write <out_dir>/ref.fa (+ .fai) and <out_dir>/tumor.bam: a tumor-only
+    sample; with n_normal_reads > 0 also <out_dir>/normal.bam (SM NORMAL), a
+    matched normal of that many reads drawn after the tumor's from the two
+    parental haplotypes (the germline hets, no somatic variant), so the
+    tumor's reads are the same as without it.
 
     Germline het SNVs sit on one parental haplotype (af 0.5); somatic SNVs and
     1-3 bp indels (af uniform in af_range) sit on a somatic haplotype. All
@@ -191,7 +286,8 @@ def write_tumor_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=200
     read, from either parent with probability 0.5.
 
     Returns dict(fasta=path, bam=path, contig=contig, length=length,
-    germline=[Planted], somatic=[Planted], n_reads=n_reads)."""
+    germline=[Planted], somatic=[Planted], n_reads=n_reads), and
+    normal_bam=path with a matched normal."""
     rng = np.random.default_rng(seed)
     ref = _ACGT[rng.integers(0, 4, length)]
     planted = _plant(rng, ref, n_germline + n_somatic_snv, n_somatic_indel, min_gap, margin=300)
@@ -223,8 +319,18 @@ def write_tumor_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=200
                                 err_rate, qual_range))
     path = os.path.join(out_dir, "tumor.bam")
     _write_bam(path, contig, length, reads, sample)
-    return dict(fasta=fasta, bam=path, contig=contig, length=length, germline=germline,
-                somatic=somatic, n_reads=n_reads)
+    out = dict(fasta=fasta, bam=path, contig=contig, length=length, germline=germline,
+               somatic=somatic, n_reads=n_reads)
+    if n_normal_reads:
+        normal = []
+        for k in range(n_normal_reads):
+            src, where = haps[int(rng.random() < 0.5)]
+            s = int(rng.integers(0, len(src) - read_len + 1))
+            normal.append(_make_read(rng, k, src[s : s + read_len], where[s : s + read_len],
+                                     err_rate, qual_range))
+        out["normal_bam"] = os.path.join(out_dir, "normal.bam")
+        _write_bam(out["normal_bam"], contig, length, normal, "NORMAL")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -195,6 +195,22 @@ def test_hmm_plain_version_matches_gatk_tpu(case):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("C", [33, 64])
+def test_entry_matches_gatk_tpu_past_32_states(C):
+    """The port's entry on CPU tensors (the plain version) against gatk_tpu's
+    pass at more states than a warp has lanes (GermlineCNVCaller
+    --max-copy-number 32 and 63), a coherent chain with a break: 1e-4
+    absolute, as at 6 states."""
+    rng = np.random.default_rng(C)
+    T = 120
+    stay = np.exp(-rng.uniform(500, 3000, T - 1) / 10000.0)
+    stay[60] = 0.0
+    log_em, log_pi, stay = _hmm_inputs(rng, 3, T, C, stay)
+    got = cnv_hmm.hmm_forward_backward(*map(torch.as_tensor, (log_em, log_pi, stay)))
+    assert got.shape == (3, T, C) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), _jax_hmm(log_em, log_pi, stay), atol=1e-4, rtol=0)
+
+
 def test_entry_on_cpu_runs_the_plain_version_uncounted():
     rng = np.random.default_rng(6)
     args = [torch.as_tensor(a) for a in _hmm_inputs(rng, 2, 20, 6, np.full(19, 0.9))]

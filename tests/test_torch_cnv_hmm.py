@@ -32,10 +32,12 @@ from tests.test_torch_pairhmm import one_torch_thread  # noqa: F401
 
 # (S, T, C, stay): a coherent chain with two breaks, one interval, a break at
 # every interval (stay 0), stay 1 (off-diagonal log transitions -inf), one
-# state on every lane of a warp, one state
+# state on every lane of a warp, one state, and more states than a warp has
+# lanes (the kernel's vectors a warp wide, 2 states a lane)
 CASES = {"coherent": (4, 300, 6, "coherent"), "T=1": (4, 1, 6, "none"),
          "break everywhere": (4, 40, 6, "break"), "stay=1": (4, 40, 6, "one"),
-         "C=32": (3, 64, 32, "coherent"), "C=1": (2, 30, 1, "coherent")}
+         "C=32": (3, 64, 32, "coherent"), "C=1": (2, 30, 1, "coherent"),
+         "C=33": (3, 200, 33, "coherent"), "C=64": (2, 150, 64, "coherent")}
 # chunk lengths, from one step to more than the chain
 CHUNKS = {"1": lambda T: 1, "7": lambda T: 7, "64": lambda T: 64, "T-1": lambda T: max(1, T - 1),
           "T+5": lambda T: T + 5}

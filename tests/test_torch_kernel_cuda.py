@@ -362,6 +362,10 @@ L = cnv_hmm.CHUNK
     (6, 1000, 6, "coherent"),  # and a last chunk shorter than L
     (3, 700, 13, "coherent"),  # C > 8: groups of 32 lanes, over several chunks
     (8, 3000, 6, "far"),  # states far from the data: log posteriors of -6e3
+    (3, 700, 33, "coherent"),  # C > 32: a warp a vector, 2 states a lane,
+    (2, 300, 64, "coherent"),  # 2 full,
+    (2, 300, 100, "far"),  # 4, the last lane part full,
+    (2, 300, 257, "coherent"),  # 9, one state in the last
 ])
 def test_cnv_hmm_kernel_matches_plain(cuda_device, S, T, C, stay):
     rng = np.random.default_rng(S * T + C)
@@ -394,8 +398,8 @@ def test_cnv_hmm_kernel_matches_plain(cuda_device, S, T, C, stay):
         assert torch.equal(got.argmax(-1)[clear], want64.argmax(-1)[clear])
 
 
-@pytest.mark.parametrize("chunk", [1, 3, 64, 256])
-def test_cnv_hmm_kernel_at_other_chunks(cuda_device, chunk):
+@pytest.mark.parametrize("chunk,C", [(1, 6), (3, 6), (64, 6), (256, 6), (3, 40), (64, 40)])
+def test_cnv_hmm_kernel_at_other_chunks(cuda_device, chunk, C):
     """The kernel at chunk lengths other than the entry's, against the chunked
     plain version at the same length."""
     from gatk_tpu_torch.ops import _kernels
@@ -403,7 +407,7 @@ def test_cnv_hmm_kernel_at_other_chunks(cuda_device, chunk):
     rng = np.random.default_rng(chunk)
     stays = np.exp(-rng.uniform(500, 3000, 599) / 10000.0)
     stays[[100, 450]] = 0.0
-    args = _hmm_inputs(rng, 5, 600, 6, stays, cuda_device)
+    args = _hmm_inputs(rng, 5, 600, C, stays, cuda_device)
     got = _kernels.cnv_hmm(*args, chunk=chunk)
     want = cnv_hmm.hmm_forward_backward_chunked_reference(*args, chunk=chunk)
     torch.cuda.synchronize()
@@ -421,8 +425,59 @@ def test_cnv_hmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         _kernels.cnv_hmm(em.transpose(0, 1).contiguous().transpose(0, 1), lp, stay)
     with pytest.raises(ValueError, match="stay"):
         _kernels.cnv_hmm(em, lp, stay[:5])
-    with pytest.raises(ValueError, match="C <= 32"):
-        big = torch.zeros((2, 10, 33), device=cuda_device)
-        _kernels.cnv_hmm(big, big, stay)
+    with pytest.raises(ValueError, match="C > 0"):
+        empty = torch.zeros((2, 10, 0), device=cuda_device)
+        _kernels.cnv_hmm(empty, empty, stay)
     with pytest.raises(ValueError, match="chunk"):
         _kernels.cnv_hmm(em, lp, stay, chunk=0)
+
+
+def test_germline_cnv_caller_on_card_at_33_states(cuda_device, tmp_path):
+    """GermlineCNVCaller --device cuda --max-copy-number 32 (C = 33, a warp a
+    vector in the HMM kernel) runs to its end on the CPU tests' small cohort,
+    every pass on the card; its copy numbers lie in 0..32, and its HMM pass
+    of the fitted model is within HMM_TOL_F64 of the float64 plain version."""
+    import contextlib
+    import io
+    import os
+
+    from gatk_tpu_torch import cli
+    from gatk_tpu_torch.cnv import denoising
+    from gatk_tpu_torch.utils import synthetic
+
+    coh = synthetic.write_cnv_cohort(str(tmp_path), seed=1, n_samples=6, n_intervals=300,
+                                     n_events=6, event_len=(10, 15), factor_sd=0.05)
+    inputs = sum((["-I", p] for p in coh["counts"]), [])
+    fit = denoising.GermlineDenoisingModel.fit
+    models = []
+
+    def keep(self, *args, **kwargs):
+        models.append(self)
+        return fit(self, *args, **kwargs)
+
+    entry = cnv_hmm.hmm_forward_backward
+    passes = entry.passes
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["DetermineGermlineContigPloidy", *inputs, "--contig-ploidy-priors",
+                         coh["ploidy_priors"], "-O", str(tmp_path), "--output-prefix",
+                         "ploidy"]) == 0
+        denoising.GermlineDenoisingModel.fit = keep
+        try:
+            assert cli.main(["GermlineCNVCaller", *inputs, "--contig-ploidy-calls",
+                             str(tmp_path / "ploidy-calls"), "-O", str(tmp_path),
+                             "--output-prefix", "gcnv", "--max-bias-factors", "0",
+                             "--max-copy-number", "32", "--device", "cuda"]) == 0
+        finally:
+            denoising.GermlineDenoisingModel.fit = fit
+    (model,) = models
+    assert model.C == 33 and entry.passes > passes
+    cn = np.load(os.path.join(tmp_path, "gcnv-calls", "cn.npy"))
+    assert cn.shape == (6, 300) and cn.min() >= 0 and cn.max() <= 32
+    with torch.no_grad():
+        log_em = model._emission(model.params).contiguous()
+        log_pi, stay = model._prior_and_trans()
+    args = (log_em, log_pi.contiguous(), stay.contiguous())
+    got = entry(*args)
+    want64 = cnv_hmm.hmm_forward_backward_reference(*(a.double() for a in args))
+    torch.cuda.synchronize()
+    assert (got.double() - want64).abs().max().item() <= HMM_TOL_F64

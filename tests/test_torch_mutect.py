@@ -94,3 +94,27 @@ def test_somatic_reads_follow_allele_fraction(tumor):
 def test_every_mutect_tool_is_registered():
     assert set(MUTECT_TOOLS) <= set(port_cli.TOOL_REGISTRY)
     assert set(MUTECT_TOOLS) <= set(JAX_TOOLS)
+
+
+def test_matched_normal_changes_no_call(tumor, calls, tmp_path):
+    """gatk_tpu's fault, carried as-is: Mutect2 opens only the first -I
+    (gatk_tpu/tools/mutect_tool.py:53), calls each interval with no
+    sample_of_read (:88), and Mutect2Engine._finish_region never reads it
+    (gatk_tpu/mutect/engine.py:227). So -I tumor -I normal --normal-sample
+    NORMAL gives the tumor-only run's records, in both packages, byte for byte
+    alike. No --germline-resource: its default AF is what --normal-sample
+    changes (mutect_tool.py:64-69)."""
+    tn = synthetic.write_tumor_sample(str(tmp_path / "tn"), seed=0, length=3000, n_reads=2000,
+                                      n_germline=2, n_somatic_snv=2, n_somatic_indel=1,
+                                      n_normal_reads=2000)
+    with open(tn["bam"], "rb") as a, open(tumor["bam"], "rb") as b:
+        assert a.read() == b.read()  # the tumor does not change with a normal
+    argv = ["-I", tn["bam"], "-I", tn["normal_bam"], "--normal-sample", "NORMAL",
+            "-R", tn["fasta"]]
+    out = {pkg: str(tmp_path / f"{pkg}.vcf") for pkg in ("jax", "port")}
+    assert JAX_TOOLS["Mutect2"](argv + ["-O", out["jax"]]) == 0
+    assert port_cli.main(["Mutect2", *argv, "-O", out["port"], "--device", "cpu"]) == 0
+    with open(out["port"], "rb") as a, open(out["jax"], "rb") as b:
+        got = a.read()
+        assert got == b.read()
+    assert _records(got) == _records(calls["port"][".vcf"])

@@ -57,7 +57,7 @@ def test_port_imports_neither_jax_nor_gatk_tpu():
 
 
 def test_every_module_named_in_a_header_is_copied():
-    assert len(_copied_files()) == 68
+    assert len(_copied_files()) == 84
 
 
 def _is_import(node):
@@ -76,6 +76,7 @@ def _import_lines(src):
 # its uses, and the --device flags
 RENAMED = {"calling/hc_engine.py": (18, 332, 407, 518, 549),
            "mutect/engine.py": (23, 158, 197, 232)}
+# the PairHMM's flag: Mutect2, RampedHaplotypeCaller, HaplotypeBasedVariantRecaller
 MUTECT2_DEVICE_FLAG = [
     '    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",\n',
     '                   help="where the PairHMM runs: the CUDA kernel, or its plain "\n',
@@ -101,13 +102,17 @@ DEVICE_FLAGS = {
     "tools/mutect_tool.py": [(38, MUTECT2_DEVICE_FLAG)],
     "tools/cnv_tools.py": [(72, GCNV_DEVICE_FLAG)],
     "tools/somatic_cnv_tools.py": [(326, PON_DEVICE_FLAG), (452, MODEL_SEGMENTS_DEVICE_FLAG)],
+    "tools/ramped_hc_tool.py": [(86, MUTECT2_DEVICE_FLAG)],
+    "tools/variant_recalling_tool.py": [(54, MUTECT2_DEVICE_FLAG)],
 }
 
 # copy -> (n, the start of the original's line n + 1): where a tool with a
 # --device flag imports the devices module
 DEVICES_IMPORT = {"tools/mutect_tool.py": (9, "\n"),
                   "tools/cnv_tools.py": (9, "from ..cli import"),
-                  "tools/somatic_cnv_tools.py": (15, "from ..cli import")}
+                  "tools/somatic_cnv_tools.py": (15, "from ..cli import"),
+                  "tools/ramped_hc_tool.py": (32, "\n"),
+                  "tools/variant_recalling_tool.py": (20, "\n")}
 
 
 def _expected_changes(copy, original):
