@@ -29,7 +29,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   recaller HaplotypeBasedVariantRecaller --device cuda on the hc sample's calls
            and -bamout: one pair-kernel launch a variant with reads, the matrix
            CSV within one step of its 4th decimal (1e-4) of a --device cpu run
-           of the same tool; launches, median pairs a launch and walls
+           of the same tool on the first 8 variants; launches, median pairs a
+           launch and walls
   gvcf     the same sample with -ERC GVCF on a 2 kb interval (the cartesian
            route: the matrix kernel)
   trio     a synthetic trio (utils/synthetic.write_trio: 16,569 bp, 20,000 reads
@@ -56,6 +57,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
            read group's empirical quality within 1 of the planted error rate's
            (23.0), every planted SNV called, the largest launch held against
            the plain version and timed
+  flow     HaplotypeCaller --likelihood-calculation-engine FlowBasedHMM
+           --flow-order TGCA --device cuda over a synthetic flow-space sample
+           (utils/synthetic.write_flow_sample: 16,569 bp, 3,400 reads of 200
+           bases with tp and t0 tags, 24 het SNVs and 6 het indels, 3 of them
+           a homopolymer's length): every planted SNV called 0/1 and >= 5 of 6
+           indels, the flow kernel scoring exactly the genotyped regions' reads
+           x haplotypes, a profiled second run (idle share), the largest launch
+           held against the plain version and timed beside its bound
+  vqsr     a sites-only callset (utils/synthetic.write_callset: one 20 Mb
+           contig, 18,000 SNVs and 2,000 indels, 80 % true sites, the seven
+           annotations drawn apart, a truth VCF of 60 % of the true sites, a
+           GATK_CNN_1D .pt made from a seed) through VariantRecalibrator (SNP,
+           six annotations) and ApplyVQSR at 99 % truth sensitivity (true SNVs
+           > 0.95 PASS, artifacts < 0.1), NVScoreVariants with the .pt on the
+           card and with --device cpu (CNN_1D within 1e-3), NVScoreVariants
+           --truth-vcf (40 epochs on the card; AUC of the scores against the
+           planted labels >= 0.9) and FilterVariantTranches; the GATK_CNN_1D
+           forward and a training step timed on the card, with launches a step
   main_launch  the largest pair-kernel launch of the hc run, held against the
            plain version and timed at that shape
   gcnv     the germline CNV tools through the port's CLI on a GermlineCNVCaller
@@ -89,8 +108,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
            haplotypes and the largest launch of the gvcf run, against its plain
            version; timed beside its bound and beside the pair kernel on the
            same product expanded into pairs
-Each of the runs hc, ramped, recaller, gvcf, trio, mutect2, preprocess, gcnv
-and variants starts with every kernel's launch count at 0 and reads the counts
+Each of the runs hc, ramped, recaller, gvcf, flow, trio, mutect2, preprocess,
+gcnv and variants starts with every kernel's launch count at 0 and reads the counts
 at its end. hc, gvcf and mutect2 also
 profile a second run (device time of the sweep kernels, of the plan kernels
 their launchers run first, and of all device work) and report every launch's
@@ -164,13 +183,14 @@ def nvidia_smi_line():
 
 def _entries():
     """The port's kernel entries, each with its launch counter and a counter of
-    its work (PairHMM pairs, HMM states)."""
-    from gatk_tpu_torch.ops import cnv_hmm, pairhmm
+    its work (PairHMM and flow PairHMM pairs, HMM states)."""
+    from gatk_tpu_torch.ops import cnv_hmm, flow_pairhmm, pairhmm
 
     return {"pairhmm_fwd": pairhmm.pairhmm_pairs,
             "pairhmm_fwd_hap_n_mismatch": pairhmm.pairhmm_pairs_hap_n_mismatch,
             "pairhmm_matrix": pairhmm.pairhmm_matrix,
-            "cnv_hmm": cnv_hmm.hmm_forward_backward}
+            "cnv_hmm": cnv_hmm.hmm_forward_backward,
+            "flow_pairhmm": flow_pairhmm.flow_pairhmm_batch}
 
 
 def reset_counts():
@@ -185,7 +205,7 @@ def read_counts():
 
 
 def _pairs(counts):
-    """PairHMM pairs scored, summed over the PairHMM entries."""
+    """Pairs scored, summed over the PairHMM entries (the flow PairHMM's too)."""
     return sum(c.get("pairs", 0) for c in counts.values())
 
 
@@ -319,10 +339,10 @@ def _compare(pools, ri, hi, what, hap_n_mismatch=False):
     return (got, *_check_close(got, want, what))
 
 
-def _bound(cells, in_bytes, out_bytes):
+def _bound(cells, in_bytes, out_bytes, flops_per_cell=FLOPS_PER_CELL):
     """The least time the card could take: the larger of the FP32 time of the
     cells and the time to read the inputs once and write the output once."""
-    ops_ms = cells * FLOPS_PER_CELL / FP32_PEAK * 1e3
+    ops_ms = cells * flops_per_cell / FP32_PEAK * 1e3
     bytes_ms = (in_bytes + out_bytes) / HBM_RATE * 1e3
     return dict(useful_cells=cells, bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -879,6 +899,308 @@ def phase_main_launch(kept):
     return res
 
 
+# --------------------------------------------------------------------------- flow
+
+FLOW = dict(seed=0)  # utils/synthetic.write_flow_sample at its defaults: 16,569 bp, 3,400 reads
+# FP32 operations per needed flow DP cell, counted from the plain version
+# (ops/flow_pairhmm.flow_pairhmm_batch_plain): M 5, I 3, D 3 (m * MD, dd * d,
+# the sum), and the row maximum's 3 comparisons
+FLOW_FLOPS_PER_CELL = 14
+
+
+@contextlib.contextmanager
+def keeping_flow_launches():
+    """Keeps the inputs of the largest launch of the flow kernel made inside
+    the block (by B x Rp x W) and the shape of every launch."""
+    from gatk_tpu_torch.ops import _kernels
+
+    launch = _kernels.flow_pairhmm
+    kept = {"n": 0, "shapes": []}
+
+    def keep(prior, *args):
+        kept["shapes"].append(tuple(prior.shape))
+        if prior.numel() > kept["n"]:
+            kept.update(n=prior.numel(), args=(prior, *args))
+        return launch(prior, *args)
+
+    _kernels.flow_pairhmm = keep
+    try:
+        yield kept
+    finally:
+        _kernels.flow_pairhmm = launch
+
+
+@contextlib.contextmanager
+def counting_flow_pairs(hc_engine):
+    """Counts reads x haplotypes of every region HaplotypeCallerEngine
+    genotyped through FlowBasedHMM (its prep holds no PairHMM reads)."""
+    total = [0]
+    finish = hc_engine.HaplotypeCallerEngine.finish_region
+
+    def finish_counted(self, prep):
+        total[0] += len(prep["final_reads"]) * len(prep["haplotypes"])
+        return finish(self, prep)
+
+    hc_engine.HaplotypeCallerEngine.finish_region = finish_counted
+    try:
+        yield total
+    finally:
+        hc_engine.HaplotypeCallerEngine.finish_region = finish
+
+
+def _flow_bound(prior, trans, rlen, hlen):
+    """The flow kernel's bound on these inputs: the coset cells each pair needs
+    (its rows up to clip(rlen - 1, 0, Rp - 1), ceil((hlen + 1) / 4) columns a
+    row, as the host DP loops), and the bytes of those prior and transition
+    rows, the lengths and the output."""
+    from gatk_tpu_torch.ops import flow_pairhmm
+
+    B, Rp, W = prior.shape
+    rows = flow_pairhmm.final_rows(rlen, Rp) + 1
+    F = flow_pairhmm.FLOW_SIZE
+    cells = int((rows * ((hlen.long() + F) // F)).sum().item())
+    in_bytes = int(rows.sum().item()) * (W + 6) * 4 + 8 * B
+    return _bound(cells, in_bytes, 4 * B, FLOW_FLOPS_PER_CELL)
+
+
+def _flow_case(args, what, plain_reps=3):
+    """The flow kernel against its plain version on one launch's inputs (equal
+    -inf sets, finite values within KERNEL_TOL), timed beside it and its bound."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    got = _kernels.flow_pairhmm(*args)
+    want = flow_pairhmm.flow_pairhmm_batch_plain(*args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    check(got.shape == want.shape and not got.isnan().any(), f"{what}: NaN or a wrong shape")
+    check(torch.equal(fin, torch.isfinite(got)) and bool((got[~fin] == -np.inf).all()),
+          f"{what}: kernel and plain version disagree on which pairs are -inf")
+    err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+    check(err <= KERNEL_TOL, f"{what}: max |kernel - plain| = {err} > {KERNEL_TOL}")
+    kernel_ms = median_ms(lambda: _kernels.flow_pairhmm(*args), reps=30, warmup=3)
+    plain_ms = median_ms(lambda: flow_pairhmm.flow_pairhmm_batch_plain(*args), reps=plain_reps,
+                         warmup=1)
+    B, Rp, W = args[0].shape
+    bound = _flow_bound(*args)
+    return dict(case=what, pairs=B, Rp=Rp, W=W, finite=int(fin.sum()), max_abs_err=err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                useful_gcups=bound["useful_cells"] / kernel_ms / 1e6, **bound)
+
+
+def phase_flow(tmp):
+    """HaplotypeCaller --likelihood-calculation-engine FlowBasedHMM --device cuda
+    over the whole contig of a flow-space sample (the flow kernel), its calls
+    gated as the hc phase's; the kernels must have scored exactly the
+    genotyped regions' reads x haplotypes; a profiled second run; the largest
+    launch held against the plain version and timed."""
+    from gatk_tpu_torch import cli
+    from gatk_tpu_torch.calling import hc_engine
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "flow")
+    t0 = time.perf_counter()
+    sample = synthetic.write_flow_sample(d, **FLOW)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(d, "flow.vcf")
+    argv = ["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"], "-O", out,
+            "--likelihood-calculation-engine", "FlowBasedHMM", "--flow-order",
+            sample["flow_order"], "--device", "cuda"]
+    with keeping_flow_launches() as kept:
+        wall, counts, stages = _run_tool(argv, counting_flow_pairs(hc_engine))
+    launches = counts["flow_pairhmm"]["launches"]
+    check(launches > 0, "the flow kernel was never launched by FlowBasedHMM")
+    recs = _records(out)
+    missed_snv, indel_called = _germline_gates(sample, recs)
+    snvs = [v for v in sample["variants"] if v.is_snv]
+    indels = [v for v in sample["variants"] if not v.is_snv]
+    argv2 = argv[:6] + [out + ".2"] + argv[7:]
+    profiled = _profile(lambda: check(cli.main(argv2) == 0, "profiled FlowBasedHMM run failed"),
+                        kernels=dict(kernel=["flow_pairhmm_kernel"]))
+    with open(out, "rb") as a, open(out + ".2", "rb") as b:
+        check(a.read() == b.read(), "a second FlowBasedHMM run wrote a different VCF")
+    largest = _flow_case(kept["args"], "FlowBasedHMM's largest launch")
+    res = dict(phase="flow", contig_len=sample["length"], reads=sample["n_reads"],
+               write_s=write_s, wall_s=wall, reads_per_s=sample["n_reads"] / wall,
+               records=len(recs), snvs_called=len(snvs) - len(missed_snv),
+               snvs_planted=len(snvs), indels_called=len(indel_called),
+               indels_planted=len(indels),
+               hmer_indels_called=sum(v.pos in indel_called for v in sample["hmer_indels"]),
+               hmer_indels_planted=len(sample["hmer_indels"]), launches=launches,
+               pairs=counts["flow_pairhmm"]["pairs"], counts=counts, stages=stages,
+               launch_shapes=kept["shapes"], largest_launch=largest, **profiled)
+    emit(res)
+    check(not missed_snv, f"flow: planted SNVs not called as 0/1: {missed_snv}")
+    check(len(indel_called) >= len(indels) - 1,
+          f"flow: only {len(indel_called)} of {len(indels)} planted indels called")
+    return res
+
+
+# --------------------------------------------------------------------------- vqsr
+
+CALLSET = dict(seed=0)  # utils/synthetic.write_callset at its defaults: 20 Mb, 20,000 sites
+VQSR_ANNOTATIONS = ("QD", "FS", "MQ", "SOR", "MQRankSum", "ReadPosRankSum")
+VQSR_GOOD_PASS = 0.95  # tests/test_vqsr.py:132-133: true SNVs PASS above, artifacts below
+VQSR_BAD_PASS = 0.1
+NV_TOL = 1e-3  # CNN_1D of the card's run against the --device cpu run's
+AUC_MIN = 0.9  # trained CNN_1D scores against the planted labels
+
+
+@contextlib.contextmanager
+def keeping_outputs(module, name, into):
+    """Keeps (arguments, output) of every call of module.<name> in into[name]."""
+    fn = getattr(module, name)
+    into[name] = []
+
+    def keep(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        into[name].append((args, out))
+        return out
+
+    setattr(module, name, keep)
+    try:
+        yield into[name]
+    finally:
+        setattr(module, name, fn)
+
+
+def _auc(scores, labels):
+    """The chance that a true site outscores an artifact (ties count half)."""
+    from scipy.stats import rankdata
+
+    r = rankdata(scores)
+    n1 = int(labels.sum())
+    n0 = len(labels) - n1
+    return float((r[labels].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def _site_records(path):
+    """(FILTER, INFO dict) of each record of a sites-only VCF."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                f = line.rstrip("\n").split("\t")
+                out.append((f[6], dict(kv.split("=", 1) for kv in f[7].split(";") if "=" in kv)))
+    return out
+
+
+def _scores(logits, is_snp):
+    return np.where(is_snp, logits[:, 0] - logits[:, 1], logits[:, 2] - logits[:, 3])
+
+
+def _cnn_timings(dev, callset, nv_args, train_args):
+    """CUDA-event times on the card: GATK_CNN_1D's forward over the callset's
+    20,000 windows (the .pt run's inputs), and one training step of the CNN
+    (forward, backward and Adam on a batch of 64), with the launches a step
+    makes, counted by the profiler over 20 steps."""
+    from gatk_tpu_torch.calling import cnn_score, nvscore_models
+
+    params = nvscore_models.params_to_torch(nvscore_models.load_torch_1d(callset["weights_1d"]),
+                                            dev)
+    ref, ann = (torch.as_tensor(np.asarray(a, np.float32)).to(dev) for a in nv_args)
+
+    def forward_all():
+        with torch.no_grad():
+            for i in range(0, len(ref), nvscore_models.BATCH):
+                nvscore_models.forward_1d(params, ref[i:i + nvscore_models.BATCH],
+                                          ann[i:i + nvscore_models.BATCH])
+
+    forward_ms = median_ms(forward_all, reps=5, warmup=1)
+    p = cnn_score.params_to_torch(cnn_score.init_params(), dev)
+    opt = cnn_score.Adam({k: v for k, v in p.items() if k not in cnn_score.FROZEN})
+    x, a = (torch.as_tensor(np.asarray(v[:64], np.float32)).to(dev) for v in train_args)
+    y = torch.zeros(64, dtype=torch.long, device=dev)
+
+    def step():
+        _, grads = cnn_score.loss_and_grads(p, x, a, y)
+        opt.step(p, grads)
+
+    step_ms = median_ms(step, reps=50, warmup=5)
+    prof = _profile(lambda: [step() for _ in range(20)])
+    n = prof["profiled_launches"]
+    return dict(gatk_cnn_1d_forward_ms=forward_ms, windows=len(ref), train_step_ms=step_ms,
+                launches_per_step=n / 20 if isinstance(n, int) else n,
+                train_step_device_busy_ms=prof["device_busy_ms"])
+
+
+def phase_vqsr(dev, tmp):
+    """Variant scoring through the port's CLI on a 20,000-site callset:
+    VariantRecalibrator (SNP) and ApplyVQSR at 99 % truth sensitivity, held to
+    tests/test_vqsr.py's gates; NVScoreVariants with a GATK_CNN_1D .pt on the
+    card and with --device cpu, CNN_1D within NV_TOL; NVScoreVariants
+    --truth-vcf (40 epochs of training on the card), its scores separating the
+    planted labels (AUC); FilterVariantTranches on them; the CNN's forward and
+    training step timed on the card."""
+    from gatk_tpu_torch.calling import cnn_score, nvscore_models
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "vqsr")
+    t0 = time.perf_counter()
+    cs = synthetic.write_callset(d, **CALLSET)
+    write_s = time.perf_counter() - t0
+    is_snp = np.array([s[3] for s in cs["sites"]])
+    true = np.array([s[4] for s in cs["sites"]])
+    recal, tranches, applied = (os.path.join(d, f) for f in ("recal.vcf", "t.tranches",
+                                                             "applied.vcf"))
+    tool_s = {}
+    tool_s["VariantRecalibrator"], _, _ = _run_tool(
+        ["VariantRecalibrator", "-V", cs["vcf"], "-O", recal, "--tranches-file", tranches,
+         *sum((["-an", a] for a in VQSR_ANNOTATIONS), []), "-mode", "SNP",
+         "--resource:truth,known=false,training=true,truth=true,prior=15.0", cs["truth"]])
+    tool_s["ApplyVQSR"], _, _ = _run_tool(
+        ["ApplyVQSR", "-V", cs["vcf"], "--recal-file", recal, "--tranches-file", tranches,
+         "-mode", "SNP", "--truth-sensitivity-filter-level", "99.0", "-O", applied])
+    status = np.array([f == "PASS" for f, _ in _site_records(applied)])
+    good_pass = float(status[is_snp & true].mean())
+    bad_pass = float(status[is_snp & ~true].mean())
+
+    kept = {}
+    nv = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(d, f"nv_{device}.vcf")
+        with keeping_outputs(nvscore_models, "forward_1d", kept):
+            tool_s[f"NVScoreVariants .pt {device}"], c, _ = _run_tool(
+                ["NVScoreVariants", "-V", cs["vcf"], "-R", cs["fasta"], "-O", out,
+                 "--model-weights", cs["weights_1d"], "--device", device])
+        nv[device] = (_scores(kept["forward_1d"][0][1], is_snp),
+                      [info["CNN_1D"] for _, info in _site_records(out)])
+    nv_args = kept["forward_1d"][0][0][1:3]
+    nv_err = float(np.abs(nv["cuda"][0] - nv["cpu"][0]).max())
+    printed_differ = sum(a != b for a, b in zip(nv["cuda"][1], nv["cpu"][1]))
+
+    trained = os.path.join(d, "trained.vcf")
+    timed = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timing(cnn_score, "train", dev, timed))
+        scored = stack.enter_context(keeping_outputs(cnn_score, "score", kept))
+        tool_s["NVScoreVariants --truth-vcf"], _, _ = _run_tool(
+            ["NVScoreVariants", "-V", cs["vcf"], "-R", cs["fasta"], "-O", trained,
+             "--truth-vcf", cs["truth"], "--device", "cuda"])
+    train_args = timed["train"].pop("args")
+    epochs = 40
+    steps = epochs * -(-len(cs["sites"]) // 64)
+    auc = _auc(scored[0][1], true)
+    filtered = os.path.join(d, "filtered.vcf")
+    tool_s["FilterVariantTranches"], _, _ = _run_tool(
+        ["FilterVariantTranches", "-V", trained, "-O", filtered, "--resource", cs["truth"]])
+    n_filtered = sum(f != "PASS" for f, _ in _site_records(filtered))
+    timings = _cnn_timings(dev, cs, nv_args, train_args[1:3])
+    res = dict(phase="vqsr", sites=len(cs["sites"]), snvs=int(is_snp.sum()),
+               contig_len=cs["length"], write_s=write_s, tool_s=tool_s,
+               wall_s=sum(tool_s.values()), vqsr_good_pass=good_pass, vqsr_bad_pass=bad_pass,
+               nv_max_abs_diff_cuda_cpu=nv_err, nv_printed_differ=printed_differ,
+               train_s=timed["train"]["seconds"], train_steps=steps,
+               train_ms_per_step=timed["train"]["seconds"] * 1e3 / steps,
+               trained_auc=auc, filtered=n_filtered, **timings)
+    emit(res)
+    check(good_pass > VQSR_GOOD_PASS and bad_pass < VQSR_BAD_PASS,
+          f"ApplyVQSR: true SNVs PASS {good_pass}, artifacts PASS {bad_pass}")
+    check(nv_err <= NV_TOL, f"NVScoreVariants: CNN_1D on the card {nv_err} from the host's")
+    check(auc >= AUC_MIN, f"NVScoreVariants --truth-vcf: AUC {auc} < {AUC_MIN}")
+    check(0 < n_filtered < len(cs["sites"]), f"FilterVariantTranches filtered {n_filtered}")
+    return res
+
+
 # --------------------------------------------------------------------------- ramped / recaller
 
 
@@ -933,26 +1255,46 @@ def _matrix_csv(path):
         return [ln.split() for ln in fh.read().splitlines()]
 
 
+def _first_records(vcf_in, vcf_out, n):
+    """vcf_in's header and its first n records, into vcf_out."""
+    with open(vcf_in) as src, open(vcf_out, "w") as dst:
+        for line in src:
+            if line.startswith("#") or n > 0:
+                dst.write(line)
+                n -= not line.startswith("#")
+
+
+# variants of the recaller's --device cpu run: its plain PairHMM on the host
+# of an NVIDIA H100 machine took 103-120 s for all 30 (PERF.md §5)
+RECALLER_HOST_VARIANTS = 8
+
+
 def phase_recaller(sample, tmp):
     """HaplotypeBasedVariantRecaller on the hc sample: HaplotypeCaller -bamout
     gives the alleles (its VCF) and the haplotypes (its bamout); the recaller
     flushes the pool once a variant, so the card gets one launch a variant
     with reads. Its matrix CSV is held to a --device cpu run (the plain
-    versions on the host) of the same tool on the same inputs."""
+    versions on the host) of the same tool on the same inputs, cut to the
+    first RECALLER_HOST_VARIANTS variants (each variant's block is computed
+    on its own)."""
     vcf_out = os.path.join(tmp, "recaller.alleles.vcf")
     bamout = os.path.join(tmp, "recaller.haps.bam")
     hc_s, _, _ = _run_tool(["HaplotypeCaller", "-I", sample["bam"], "-R", sample["fasta"],
                             "-O", vcf_out, "-bamout", bamout, "--device", "cuda"])
+    alleles = {"cuda": vcf_out, "cpu": os.path.join(tmp, "recaller.alleles.head.vcf")}
+    _first_records(vcf_out, alleles["cpu"], RECALLER_HOST_VARIANTS)
     csv = {d: os.path.join(tmp, f"recaller.{d}.csv") for d in ("cuda", "cpu")}
-    argv = {d: ["HaplotypeBasedVariantRecaller", "--alleles-file-vcf", vcf_out,
+    argv = {d: ["HaplotypeBasedVariantRecaller", "--alleles-file-vcf", alleles[d],
                 "--haplotypes-file-bam", bamout, "--matrix-file-csv", csv[d],
                 "-I", sample["bam"], "-R", sample["fasta"], "--device", d]
             for d in ("cuda", "cpu")}
     with keeping_launches("pairhmm_fwd") as kept:
         wall, counts, _ = _run_tool(argv["cuda"])
     cpu_s, _, _ = _run_tool(argv["cpu"])
-    got, want = _matrix_csv(csv["cuda"]), _matrix_csv(csv["cpu"])
-    blocks = sum(row[0].startswith("#") for row in got)
+    got_all, want = _matrix_csv(csv["cuda"]), _matrix_csv(csv["cpu"])
+    blocks = sum(row[0].startswith("#") for row in got_all)
+    starts = [i for i, row in enumerate(got_all) if row[0].startswith("#")]
+    got = got_all[: starts[RECALLER_HOST_VARIANTS]] if blocks > RECALLER_HOST_VARIANTS else got_all
     shape_ok = len(got) == len(want) and all(
         len(a) == len(b) and (a[:5] == b[:5] if not a[0].startswith("#") else a == b)
         for a, b in zip(got, want))
@@ -960,7 +1302,9 @@ def phase_recaller(sample, tmp):
              for x, y in zip(a[5:], b[5:])] if shape_ok else []
     pairs = sorted(a[1].numel() for a in kept["all"])
     res = dict(phase="recaller", hc_bamout_s=hc_s, wall_s=wall, cpu_wall_s=cpu_s,
-               variants=blocks, rows=len(got), launches=counts["pairhmm_fwd"]["launches"],
+               variants=blocks, cpu_variants=sum(row[0].startswith("#") for row in want),
+               rows=len(got_all), rows_compared=len(got),
+               launches=counts["pairhmm_fwd"]["launches"],
                pairs=_pairs(counts), median_pairs_per_launch=(
                    float(np.median(pairs)) if pairs else 0.0), counts=counts,
                values=len(diffs), max_abs_diff_vs_cpu=max(diffs, default=0.0),
@@ -1711,9 +2055,11 @@ def main():
         ramped = phase_ramped(sample, tmp, os.path.join(tmp, "out.vcf"))
         recaller = phase_recaller(sample, tmp)
         gvcf, kept_gvcf = phase_gvcf(sample, tmp)
+        flow = phase_flow(tmp)
         trio = phase_trio(tmp)
         m2 = phase_mutect2(tmp)
         pre = phase_preprocess(tmp)
+        phase_vqsr(dev, tmp)
         gcnv, gcnv_model = phase_gcnv(dev, tmp, sample)
         hmm = phase_cnv_hmm(dev, gcnv_model)
         del gcnv_model
@@ -1724,12 +2070,14 @@ def main():
 
     # launches on each path, counted from 0 at its start; a kernel is timed at
     # the largest launch of the path it serves. No single PyTorch call computes
-    # the PairHMM or the HMM's forward-backward pass, so there is no library time.
+    # the PairHMM, the flow PairHMM or the HMM's forward-backward pass, so there
+    # is no library time.
     def by_path(name):
         return {path: r["counts"][name]["launches"]
                 for path, r in (("hc", hc), ("gvcf", gvcf), ("mutect2", m2), ("variants", var),
                                 ("gcnv", gcnv), ("ramped", ramped), ("recaller", recaller),
-                                ("trio", trio), ("preprocess", pre)) if name in r["counts"]}
+                                ("trio", trio), ("preprocess", pre), ("flow", flow))
+                if name in r["counts"]}
 
     fwd_err = max(k["max_abs_err_bench"], k["max_abs_err_ragged"], main_launch["max_abs_err"],
                   *(r["largest_launch"]["max_abs_err"] for r in (m2, ramped, pre)),
@@ -1775,6 +2123,15 @@ def main():
              ms=hmm["kernel_ms"], plain_ms=hmm["plain_ms"],
              bound_ms=hmm["bound_ms"], bound_by=hmm["bound_by"], library_ms=None),
     ]
+    fl = flow["largest_launch"]
+    kernels.append(dict(
+        name="flow_pairhmm", route="cuda", source=src + "flow_pairhmm.cu",
+        replaces="gatk_tpu/ops/flow_pairhmm.py:116 (flow_pairhmm_batch_jax under lax.scan; "
+                 "not a Pallas kernel)",
+        launches=flow["counts"]["flow_pairhmm"]["launches"],
+        launches_by_path=by_path("flow_pairhmm"), max_abs_err=fl["max_abs_err"],
+        ms=fl["kernel_ms"], plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"],
+        bound_by=fl["bound_by"], library_ms=None))
     for kd in kernels:
         kd["max_abs_diff"] = kd["max_abs_err"]
     total_s = time.perf_counter() - t_start

@@ -83,6 +83,7 @@ def _register_builtin_tools():
     from .tools import somatic_cnv_tools  # noqa: F401
     from .tools import gvcf_tools, bqsr_tools, metrics_tools  # noqa: F401
     from .tools import ramped_hc_tool, variant_recalling_tool  # noqa: F401
+    from .tools import vqsr_tools, groundtruth_tools, featuremapping_tools  # noqa: F401
 
 
 _register_builtin_tools()

@@ -27,6 +27,10 @@ version and the plain version of the chunked association. The chunked pass
 rounds otherwise than the sequential one: it is held to 1e-3 of the float64
 sequential pass and to 1e-4 plus two float32 rounding steps of the value of
 the chunked plain version.
+
+The flow-space PairHMM kernel (csrc/flow_pairhmm.cu, wrapper `flow_pairhmm`)
+runs one block per (read, haplotype) pair over the read's flow rows, its
+carried rows in shared memory; ops/flow_pairhmm.py holds its plain version.
 """
 from __future__ import annotations
 
@@ -111,6 +115,7 @@ def library(name: str) -> ctypes.CDLL:
             _bind_pairhmm(_libs["pairhmm_fwd"])
             _bind_pairhmm_matrix(_libs["pairhmm_matrix"])
             _bind_cnv_hmm(_libs["cnv_hmm"])
+            _bind_flow_pairhmm(_libs["flow_pairhmm"])
         return _libs[name]
 
 
@@ -134,6 +139,14 @@ def _bind_cnv_hmm(lib):
     lib.cnv_hmm.argtypes = [vp] * 5 + [i] * 4 + [vp, ctypes.POINTER(i)]
     lib.cnv_hmm_scratch.restype = ctypes.c_longlong
     lib.cnv_hmm_scratch.argtypes = [i] * 4
+
+
+def _bind_flow_pairhmm(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.flow_pairhmm.restype = i
+    lib.flow_pairhmm.argtypes = [vp] * 5 + [i] * 3 + [vp]
+    lib.flow_pairhmm_smem.restype = ctypes.c_longlong
+    lib.flow_pairhmm_smem.argtypes = [i]
 
 
 def plan_groups(rows: torch.Tensor, hlen: torch.Tensor | None = None, hmax: int = 0):
@@ -353,3 +366,43 @@ def cnv_hmm_dependent_steps(T: int, chunk: int = CNV_HMM_CHUNK) -> int:
     scan over the chunks and the chunk's own values, 2 L + P (P chunks)."""
     P = max(1, -(-(T - 1) // chunk))
     return (2 * min(chunk, max(T - 1, 0)) if P > 1 else max(T - 1, 0)) + P
+
+
+FLOW_MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+
+
+def flow_pairhmm(prior: torch.Tensor, trans: torch.Tensor, rlen: torch.Tensor,
+                 hlen: torch.Tensor) -> torch.Tensor:
+    """Launch the flow-space PairHMM kernel (csrc/flow_pairhmm.cu) on PyTorch's
+    current stream: (B,) f32 log10 likelihoods of the pairs of prior
+    (B, Rp, W) f32, trans (B, Rp, 6) f32 and rlen, hlen (B,) int32, all
+    contiguous on one CUDA device (ops/flow_pairhmm.py states the DP). A
+    block holds 9 rows of W (rounded up to a multiple of 4) floats in shared
+    memory, so W is at most 6,456."""
+    what = "flow_pairhmm"
+    dev = prior.device
+    _check(dev.type == "cuda", what, f"prior is on {dev}, not a CUDA device")
+    _check(prior.dim() == 3, what, "prior must be (B, Rp, W)")
+    B, Rp, W = prior.shape
+    _check(B > 0 and Rp > 0 and W > 0, what, f"needs B, Rp, W > 0: {(B, Rp, W)}")
+    _check(trans.shape == (B, Rp, 6), what, f"trans must be (B, Rp, 6) = {(B, Rp, 6)}")
+    _check(rlen.shape == (B,) and hlen.shape == (B,), what, "rlen and hlen must be (B,)")
+    for t in (prior, trans):
+        _check(t.dtype == torch.float32, what, "prior and trans must be float32")
+    for t in (rlen, hlen):
+        _check(t.dtype == torch.int32, what, "rlen and hlen must be int32")
+    for t in (prior, trans, rlen, hlen):
+        _check(t.device == dev, what, f"all operands must be on {dev}")
+        _check(t.is_contiguous(), what, "all operands must be contiguous")
+    _check(B < 2 ** 31 and Rp * 6 < 2 ** 31, what, "operands too large")
+    lib = library("flow_pairhmm")
+    smem = lib.flow_pairhmm_smem(W)
+    _check(smem <= FLOW_MAX_SMEM, what,
+           f"W = {W} needs {smem} bytes of shared memory a block, over {FLOW_MAX_SMEM}")
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.flow_pairhmm(prior.data_ptr(), trans.data_ptr(), rlen.data_ptr(),
+                              hlen.data_ptr(), out.data_ptr(), B, Rp, W,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, rc, what, f"B={B}, Rp={Rp}, W={W}")
+    return out

@@ -1,0 +1,310 @@
+"""Flow-space PairHMM (Ultima Genomics) on an NVIDIA GPU: the PyTorch port of
+gatk_tpu/ops/flow_pairhmm.py.
+
+Reference: utils/pairhmm/FlowBasedPairHMM.java:167-241. The DP runs over flow
+*keys* (homopolymer run lengths per flow) instead of bases; frame shifts happen
+in discrete units of FLOW_SIZE=4 (the flow-order cycle), so:
+  * match      pulls (i-1, j-1)      — next flow on both
+  * insertion  pulls (i-4, j)        — a full extra flow cycle in the read
+  * deletion   pulls (i,   j-4)      — a full extra flow cycle in the haplotype
+Priors are the read's flow-matrix P(true hmer = hapKey[j] | flow i), nonzero only
+where read/hap flow nucleotides agree — which for period-4 cyclic flow orders
+confines each DP to one (j - i) mod 4 coset, so the batched version computes
+dense rows safely (off-coset cells stay exactly zero).
+
+`flow_pairhmm_log10` is the host float64 reference, as gatk_tpu writes it. The
+batched DP, `flow_pairhmm_batch(prior, trans, rlen, hlen)`, runs row by row over
+the read's flows in float32 with the row renormalisation of gatk_tpu's
+flow_pairhmm_batch_jax (:116-194): a running log10 offset in place of the
+2^1020 scale. On a CUDA tensor it launches the hand-written Hopper kernel
+csrc/flow_pairhmm.cu (ops/_kernels.flow_pairhmm) and raises if the launch
+fails; on a CPU tensor it runs `flow_pairhmm_batch_plain`, the plain PyTorch
+version, which is also the kernel's oracle. Its `launches` and `pairs` count
+the kernel's launches and the pairs they scored.
+
+`compute_flow_likelihood_matrix` builds the batch's prior on the device, by a
+gather from each read's probability table and each haplotype's key and flow
+bases (`flow_prior`), where gatk_tpu packs the dense (B, Rp, W) array on the
+host (`_pack_flow_batch`, kept here as the gather's oracle): the two are equal
+bit for bit.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import pairhmm_model as pm
+from ..devices import resolve_device
+from .flow import FlowBasedHaplotype, FlowBasedRead
+from .pairhmm import _Counted
+
+FLOW_SIZE = 4
+# floats of the dense prior one launch may take (512 MiB); a larger batch of
+# pairs is cut into launches of whole pairs
+MAX_PRIOR_FLOATS = 1 << 27
+
+
+def _starting_point(hap_flow_order: np.ndarray, read_flow_order: np.ndarray) -> int:
+    """First haplotype flow reading the same nucleotide as the read's first flow
+    (FlowBasedPairHMM.java:141-147)."""
+    for i, b in enumerate(hap_flow_order):
+        if b == read_flow_order[0]:
+            return i
+    return 0
+
+
+def flow_pairhmm_log10(hap: FlowBasedHaplotype, read: FlowBasedRead) -> float:
+    """Host f64 reference, mirroring FlowBasedPairHMM.java:167-241 exactly."""
+    rk = read.key
+    hk = hap.key
+    R, H = len(rk), len(hk)
+    if R == 0 or H == 0:
+        return -np.inf
+    pr, pc = R + 1 + FLOW_SIZE, H + 1 + FLOW_SIZE
+    hap_start = _starting_point(hap.flow_order_array, read.flow_order_array)
+
+    iq, dq, gcp = read.key_space_quals()
+    trans = pm.qual_to_trans_probs(iq, dq, gcp)  # (R, 6)
+
+    prob = read.prob_table(int(hk.max()))  # (R, max_hmer+1)
+    prior = np.zeros((pr, pc))
+    same = hap.flow_order_array[None, :] == read.flow_order_array[:, None]
+    prior[1 + FLOW_SIZE:, 1 + FLOW_SIZE:] = np.where(same, prob[:, hk], 0.0)
+
+    m = np.zeros((pr, pc))
+    ins = np.zeros((pr, pc))
+    d = np.zeros((pr, pc))
+    init = 2.0 ** 1020 / H
+    d[: FLOW_SIZE + 1, :] = init
+
+    MM, IM = pm.MATCH_TO_MATCH, pm.INDEL_TO_MATCH
+    MI, II = pm.MATCH_TO_INSERTION, pm.INSERTION_TO_INSERTION
+    MD, DD = pm.MATCH_TO_DELETION, pm.DELETION_TO_DELETION
+    for i in range(1 + FLOW_SIZE, pr):
+        t = trans[i - FLOW_SIZE - 1]
+        for j in range((hap_start + i) % FLOW_SIZE + FLOW_SIZE, pc, FLOW_SIZE):
+            m[i, j] = prior[i, j] * (
+                m[i - 1, j - 1] * t[MM]
+                + ins[i - 1, j - 1] * t[IM]
+                + d[i - 1, j - 1] * t[IM]
+            )
+            ins[i, j] = m[i - FLOW_SIZE, j] * t[MI] + ins[i - FLOW_SIZE, j] * t[II]
+            d[i, j] = m[i, j - FLOW_SIZE] * t[MD] + d[i, j - FLOW_SIZE] * t[DD]
+    total = m[pr - 1, 1:].sum() + ins[pr - 1, 1:].sum()
+    if total <= 0:
+        return -np.inf
+    return float(np.log10(total) - pm.INITIAL_CONDITION_LOG10)
+
+
+# ---------------------------------------------------------------------------
+# Batched path
+# ---------------------------------------------------------------------------
+
+
+def _pack_flow_batch(haps, reads, pairs):
+    """Host-side packing of the batched DP's inputs, as gatk_tpu packs them.
+
+    pairs: list of (read_idx, hap_idx). Returns dict of padded arrays."""
+    B = len(pairs)
+    Rp = max(len(reads[ri].key) for ri, _ in pairs)
+    Hp = max(len(haps[hi].key) for _, hi in pairs)
+    W = Hp + 1 + FLOW_SIZE
+    prior = np.zeros((B, Rp, W), dtype=np.float32)
+    trans = np.zeros((B, Rp, 6), dtype=np.float32)
+    rlen = np.zeros(B, dtype=np.int32)
+    hlen = np.zeros(B, dtype=np.int32)
+    ks_cache = {}
+    for b, (ri, hi) in enumerate(pairs):
+        rd, hp = reads[ri], haps[hi]
+        R, H = len(rd.key), len(hp.key)
+        rlen[b], hlen[b] = R, H
+        if ri not in ks_cache:
+            iq, dq, gc = rd.key_space_quals()
+            ks_cache[ri] = pm.qual_to_trans_probs(iq, dq, gc)
+        trans[b, :R] = ks_cache[ri]
+        prob = rd.prob_table(int(hp.key.max()) if H else 0)
+        same = hp.flow_order_array[None, :] == rd.flow_order_array[:, None]
+        # prior rows for DP rows i=F+1.. map to read flow i-F-1; columns j=F+1..
+        prior[b, :R, 1 + FLOW_SIZE: 1 + FLOW_SIZE + H] = np.where(
+            same, prob[:, hp.key], 0.0)
+    return dict(prior=prior, trans=trans, rlen=rlen, hlen=hlen,
+                hap_start=np.zeros(B, dtype=np.int32), W=W, Rp=Rp)
+
+
+READ_PAD = 0xFF  # flow base of a read's padding rows: equals no haplotype flow base
+HAP_PAD = 0xFE  # flow base of a haplotype's padding columns
+
+
+def pack_flow_tables(haps, reads, device):
+    """The per-read and per-haplotype tables `flow_prior` gathers from, on
+    `device`: dict(tables (NR, Rp, hmax + 1) f32, row f of read r holding
+    P(true hmer = h | flow f) for h = 0..hmax (the read's prob_table), rfo
+    (NR, Rp) uint8 flow bases, trans (NR, Rp, 6) f32 transition rows,
+    rlen (NR,) int32; hkey (NH, Hp) int64 keys, hfo (NH, Hp) uint8 flow bases,
+    hlen (NH,) int32), with hmax the largest key of any haplotype. Rows past a
+    read's flows and columns past a haplotype's carry flow bases that match
+    nothing, so their priors are 0."""
+    nr, nh = len(reads), len(haps)
+    Rp = max(len(rd.key) for rd in reads)
+    Hp = max(len(hp.key) for hp in haps)
+    hmax = max((int(hp.key.max()) for hp in haps if len(hp.key)), default=0)
+    tables = np.zeros((nr, Rp, hmax + 1), np.float32)
+    rfo = np.full((nr, Rp), READ_PAD, np.uint8)
+    trans = np.zeros((nr, Rp, 6), np.float32)
+    rlen = np.zeros(nr, np.int32)
+    for ri, rd in enumerate(reads):
+        R = len(rd.key)
+        rlen[ri] = R
+        tables[ri, :R] = rd.prob_table(hmax)
+        rfo[ri, :R] = rd.flow_order_array
+        trans[ri, :R] = pm.qual_to_trans_probs(*rd.key_space_quals())
+    hkey = np.zeros((nh, Hp), np.int64)
+    hfo = np.full((nh, Hp), HAP_PAD, np.uint8)
+    hlen = np.zeros(nh, np.int32)
+    for hi, hp in enumerate(haps):
+        H = len(hp.key)
+        hlen[hi] = H
+        hkey[hi, :H] = hp.key
+        hfo[hi, :H] = hp.flow_order_array
+    arrays = dict(tables=tables, rfo=rfo, trans=trans, rlen=rlen, hkey=hkey, hfo=hfo, hlen=hlen)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def flow_prior(tables, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(B, Rp, W) f32 prior of the pairs (read ri[b], haplotype hi[b]) of
+    `tables` (pack_flow_tables), W = Hp + 1 + FLOW_SIZE, on the tables' device:
+    row k, column FLOW_SIZE + 1 + j holds P(true hmer = key[j] | flow k) where
+    the read's flow k and the haplotype's flow j read one nucleotide, else 0.
+    Equal bit for bit to _pack_flow_batch's prior of the same pairs when Rp and
+    Hp are the largest of those pairs."""
+    B = ri.numel()
+    Rp, Hp = tables["rfo"].shape[1], tables["hkey"].shape[1]
+    vals = torch.gather(tables["tables"][ri], 2, tables["hkey"][hi][:, None, :].expand(B, Rp, Hp))
+    same = tables["rfo"][ri][:, :, None] == tables["hfo"][hi][:, None, :]
+    prior = torch.zeros((B, Rp, Hp + 1 + FLOW_SIZE), dtype=torch.float32, device=ri.device)
+    prior[:, :, 1 + FLOW_SIZE:] = torch.where(same, vals, 0.0)
+    return prior
+
+
+def _shift(x, n):
+    """x[:, j - n], zero for j < n."""
+    return torch.nn.functional.pad(x, (n, 0))[:, : x.shape[1]]
+
+
+def _deletion_row(a, dd):
+    """d[:, j] = a[:, j] + dd * d[:, j - 4] along each of the four stride-4
+    chains, starting at 0: an inclusive scan of the affine maps (dd, a), by
+    doubling (log2 of the chain length steps). a (B, Wp), Wp a multiple of 4;
+    dd (B, 1)."""
+    B, Wp = a.shape
+    b = a.view(B, Wp // FLOW_SIZE, FLOW_SIZE)
+    A = dd[:, :, None].expand_as(b)
+    s = 1
+    while s < b.shape[1]:
+        b = torch.cat([b[:, :s], b[:, s:] + A[:, s:] * b[:, :-s]], dim=1)
+        A = torch.cat([A[:, :s], A[:, s:] * A[:, :-s]], dim=1)
+        s *= 2
+    return b.reshape(B, Wp)
+
+
+def final_rows(rlen: torch.Tensor, Rp: int) -> torch.Tensor:
+    """The row whose sum is each pair's result: clip(rlen - 1, 0, Rp - 1)."""
+    return (rlen.long() - 1).clamp(0, Rp - 1)
+
+
+def flow_pairhmm_batch_plain(prior: torch.Tensor, trans: torch.Tensor, rlen: torch.Tensor,
+                             hlen: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the batched flow PairHMM (and of
+    csrc/flow_pairhmm.cu): (B,) f32 log10 likelihoods from prior (B, Rp, W) f32
+    already masked to the coset, trans (B, Rp, 6) f32, rlen, hlen (B,) int.
+
+    The steps of gatk_tpu's flow_pairhmm_batch_jax (:116-194) in its order,
+    a loop over the read's flows k: a 4-row history of M and I, the previous
+    D row (first 1/max(hlen, 1) over the W columns, 0 in the padding to a
+    multiple of 4); each row's M and I elementwise, its D by the stride-4
+    affine recurrence from 0; the row's M + I sum kept at k = clip(rlen - 1,
+    0, Rp - 1); then the carried state divided by c = max(M, I, D) of the row
+    (1 where c <= 0) and log10(c) added to a float32 offset. The result is
+    log10(sum) plus the offset before that row, -inf where the sum is <= 0.
+    The loop stops at the last row any pair needs."""
+    B, Rp, W = prior.shape
+    Wp = -(-W // FLOW_SIZE) * FLOW_SIZE
+    pad = Wp - W
+    dev = prior.device
+    zeros = torch.zeros((B, Wp), dtype=torch.float32, device=dev)
+    init = torch.ones((B, W), dtype=torch.float32, device=dev) / hlen.float().clamp(min=1.0)[:, None]
+    d_prev = torch.nn.functional.pad(init, (0, pad))
+    m_hist, i_hist = [zeros] * 4, [zeros] * 4
+    acc = torch.zeros(B, dtype=torch.float32, device=dev)
+    kf = final_rows(rlen, Rp)
+    total = torch.zeros(B, dtype=torch.float32, device=dev)
+    acc_at = torch.zeros(B, dtype=torch.float32, device=dev)
+    MM, IM = pm.MATCH_TO_MATCH, pm.INDEL_TO_MATCH
+    MI, II = pm.MATCH_TO_INSERTION, pm.INSERTION_TO_INSERTION
+    MD, DD = pm.MATCH_TO_DELETION, pm.DELETION_TO_DELETION
+    for k in range(int(kf.max()) + 1 if B else 0):
+        prior_row = torch.nn.functional.pad(prior[:, k], (0, pad))
+        t = trans[:, k]
+        m_row = prior_row * (_shift(m_hist[3], 1) * t[:, MM:MM + 1]
+                             + (_shift(i_hist[3], 1) + _shift(d_prev, 1)) * t[:, IM:IM + 1])
+        i_row = m_hist[0] * t[:, MI:MI + 1] + i_hist[0] * t[:, II:II + 1]
+        d_row = _deletion_row(_shift(m_row, FLOW_SIZE) * t[:, MD:MD + 1], t[:, DD:DD + 1])
+        here = kf == k
+        total = torch.where(here, m_row.sum(dim=1) + i_row.sum(dim=1), total)
+        acc_at = torch.where(here, acc, acc_at)
+        c = torch.maximum(torch.maximum(m_row.amax(dim=1), i_row.amax(dim=1)), d_row.amax(dim=1))
+        c = torch.where(c > 0, c, torch.ones_like(c))
+        inv = (1.0 / c)[:, None]
+        m_hist = [m_hist[1] * inv, m_hist[2] * inv, m_hist[3] * inv, m_row * inv]
+        i_hist = [i_hist[1] * inv, i_hist[2] * inv, i_hist[3] * inv, i_row * inv]
+        d_prev = d_row * inv
+        acc = acc + torch.log10(c)
+    out = torch.where(total > 0, torch.log10(total.clamp(min=1e-38)),
+                      torch.full_like(total, -math.inf))
+    return out + acc_at
+
+
+class _FlowEntry(_Counted):
+    """`flow_pairhmm_batch(prior, trans, rlen, hlen)`: CUDA tensors launch the
+    Hopper kernel (ops/_kernels.flow_pairhmm), CPU tensors run
+    flow_pairhmm_batch_plain. `launches` and `pairs` count the kernel's
+    launches and the pairs they scored; the plain version is not counted."""
+
+    def __call__(self, prior: torch.Tensor, trans: torch.Tensor, rlen: torch.Tensor,
+                 hlen: torch.Tensor) -> torch.Tensor:
+        if prior.device.type == "cpu":
+            return flow_pairhmm_batch_plain(prior, trans, rlen, hlen)
+        from . import _kernels
+
+        out = _kernels.flow_pairhmm(prior, trans, rlen, hlen)
+        self._count(prior.shape[0])
+        return out
+
+
+flow_pairhmm_batch = _FlowEntry()
+
+
+def compute_flow_likelihood_matrix(haps, reads, device=None) -> np.ndarray:
+    """(n_reads, n_haps) float64 log10 matrix via the batched DP on `device`
+    (devices.resolve_device: the port's default unless given; raises for CUDA
+    without a card). The prior is gathered on the device, MAX_PRIOR_FLOATS
+    at most a launch."""
+    pairs = [(ri, hi) for ri in range(len(reads)) for hi in range(len(haps))]
+    if not pairs:
+        return np.zeros((len(reads), len(haps)))
+    dev = resolve_device(device)
+    tab = pack_flow_tables(haps, reads, dev)
+    nh = len(haps)
+    idx = torch.arange(len(pairs), device=dev)
+    ri_all, hi_all = (idx // nh), (idx % nh)
+    Rp, Hp = tab["rfo"].shape[1], tab["hkey"].shape[1]
+    step = max(1, MAX_PRIOR_FLOATS // (Rp * (Hp + 1 + FLOW_SIZE)))
+    outs = []
+    for lo in range(0, len(pairs), step):
+        ri, hi = ri_all[lo:lo + step], hi_all[lo:lo + step]
+        outs.append(flow_pairhmm_batch(flow_prior(tab, ri, hi), tab["trans"][ri],
+                                       tab["rlen"][ri], tab["hlen"][hi]))
+    out = torch.cat(outs)
+    return out.cpu().numpy().astype(np.float64).reshape(len(reads), len(haps))

@@ -1,7 +1,8 @@
 """HaplotypeCaller tool (tools/walkers/haplotypecaller/HaplotypeCaller.java CLI
 equivalent). Port of gatk_tpu/tools/hc_tool.py: the same flags and output, plus
---device {cuda,cpu}; the multi-process --distributed-* flags and the
-FlowBasedHMM engine are not ported yet and raise UserError."""
+--device {cuda,cpu}, which holds for both likelihood engines (the PairHMM and
+FlowBasedHMM's flow-space PairHMM); the multi-process --distributed-* flags are
+not ported yet and raise UserError."""
 from __future__ import annotations
 
 import os
@@ -69,7 +70,8 @@ def haplotype_caller(argv):
     p.add_argument("-ERC", "--emit-ref-confidence", choices=["NONE", "GVCF"], default="NONE")
     p.add_argument("--likelihood-calculation-engine", dest="likelihood_engine",
                    choices=["PairHMM", "FlowBasedHMM"], default="PairHMM",
-                   help="read likelihood engine (FlowBasedHMM is not ported yet)")
+                   help="read likelihood engine (FlowBasedHMM: the flow-space PairHMM "
+                        "for Ultima reads)")
     p.add_argument("--flow-order", default="TGCA",
                    help="flow-cycle order for FlowBasedHMM reads")
     p.add_argument("--output-mode", default="EMIT_VARIANTS_ONLY",
@@ -113,9 +115,6 @@ def haplotype_caller(argv):
                    help="enable the DRAGEN-GATK feature bundle incl. pileup "
                         "detection + PDHMM (getDragenVersion378NameValuePairs)")
     args = p.parse_args(argv)
-    if args.likelihood_engine == "FlowBasedHMM":
-        raise UserError("--likelihood-calculation-engine FlowBasedHMM is not ported to the "
-                        "GPU package yet (ROADMAP.md open item 8, ops/flow_pairhmm)")
 
     # the device choice holds for every PairHMM caller, including the -ERC GVCF
     # route, which passes no device (hc_engine.compute_pairhmm_likelihoods)

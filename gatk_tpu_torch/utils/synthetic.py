@@ -598,3 +598,241 @@ def score_somatic_segments(case, model_rows):
     return dict(breakpoints=len(breakpoints), breakpoints_missed=missed, segments=len(model_rows),
                 log2_cr_max_err=cr_err, maf_max_err=maf_err, log2_cr_worst=cr_worst,
                 maf_worst=maf_worst)
+
+
+# ---------------------------------------------------------------------------
+# Flow-space reads and a scored callset
+# ---------------------------------------------------------------------------
+
+FLOW_ORDER = "TGCA"
+HMER_ERROR_PER_BASE = 0.003  # chance a homopolymer is read one base longer (or shorter), per base
+HMER_ERROR_MAX = 0.05
+T0_QUAL = 22  # t0 tag: a zero flow read as a 1-mer with probability 10^-2.2
+
+
+def _hmer_plant(ref, p, span=60):
+    """A 1-base change of the length of the first homopolymer of >= 3 bases that
+    starts in ref[p : p + span] (None if there is none): the run's base deleted
+    or added after the anchor base before the run."""
+    for s in range(max(p, 1), min(p + span, len(ref) - 8)):
+        if ref[s] != ref[s - 1] and ref[s + 1] == ref[s] and ref[s + 2] == ref[s]:
+            return s
+    return None
+
+
+def _flow_read(rng, k, bases, where):
+    """Read k over `bases` (ref positions `where`) through the hmer-error
+    model: each homopolymer of length L is read one base shorter (L > 1) or
+    longer, each with probability p = min(HMER_ERROR_MAX, HMER_ERROR_PER_BASE
+    L). Its tags are those an Ultima read carries: tp (int8 a base) gives the
+    first base of every run the hypothesis -1 and the last base of a run of
+    two or more (the only base of a 1-mer) +1, each with quality
+    -10 log10 p; the other bases have tp 0 and quality 40; t0 (FASTQ text)
+    gives every base T0_QUAL."""
+    out_b, out_w, tp, quals = [], [], [], []
+    s = 0
+    while s < len(bases):
+        e = s + 1
+        while e < len(bases) and bases[e] == bases[s]:
+            e += 1
+        run_w = list(where[s:e])
+        p = min(HMER_ERROR_MAX, HMER_ERROR_PER_BASE * (e - s))
+        u = rng.random()
+        if u < p and len(run_w) > 1:
+            run_w.pop()
+        elif u < 2 * p:
+            run_w.append(-1)
+        q = int(round(-10 * np.log10(p)))
+        n = len(run_w)
+        r_tp = np.zeros(n, np.int8)
+        r_q = np.full(n, 40, np.uint8)
+        if n > 1:
+            r_tp[0], r_q[0] = -1, q
+        r_tp[-1], r_q[-1] = 1, q
+        out_b.append(np.full(n, bases[s], np.uint8))
+        out_w.append(np.array(run_w))
+        tp.append(r_tp)
+        quals.append(r_q)
+        s = e
+    bases, where = np.concatenate(out_b), np.concatenate(out_w)
+    pos, ops, lens = _cigar(where)
+    tags = {"RG": "rg1", "tp": np.concatenate(tp), "t0": chr(33 + T0_QUAL) * len(bases)}
+    return Read(name=f"f{k:06d}", flag=16 if rng.random() < 0.5 else 0, ref_id=0, pos=pos,
+                mapq=60, cigar_ops=ops, cigar_lens=lens, bases=bases,
+                quals=np.concatenate(quals), mate_ref_id=-1, mate_pos=-1, tlen=0, tags=tags)
+
+
+def flow_batch(seed, read_lens, hap_lens):
+    """Haplotypes and flow-space reads for the flow PairHMM's tests, cut from
+    one random sequence: (haplotypes [bytes], reads [(bases uint8, quals
+    uint8, tp int8)]), each read through _flow_read's hmer-error model. Build
+    FlowBasedHaplotype(bases) and FlowBasedRead(bases, quals, tp=tp) of either
+    package from them."""
+    rng = np.random.default_rng(seed)
+    span = max(max(read_lens), max(hap_lens)) + 8
+    master = _ACGT[rng.integers(0, 4, span)]
+    haps, reads = [], []
+    for n in hap_lens:
+        s = int(rng.integers(0, span - n + 1))
+        haps.append(bytes(master[s : s + n]))
+    for k, n in enumerate(read_lens):
+        s = int(rng.integers(0, span - n + 1))
+        r = _flow_read(rng, k, master[s : s + n], np.arange(s, s + n))
+        reads.append((r.bases, r.quals, r.tags["tp"]))
+    return haps, reads
+
+
+def write_flow_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=3400, read_len=200,
+                      n_snv=24, n_indel=6, n_hmer_indel=3, min_gap=400, sample="FLOW1"):
+    """Write <out_dir>/ref.fa (+ .fai) and <out_dir>/flow.bam: a diploid
+    germline sample of flow-space (Ultima) reads for HaplotypeCaller
+    --likelihood-calculation-engine FlowBasedHMM with flow order FLOW_ORDER,
+    at 3,400 reads of 200 bases over 16,569 bp by default (about 41x).
+
+    The het SNVs and indels are planted as write_sample plants them; then
+    n_hmer_indel of the indels are moved to the next homopolymer of three or
+    more bases and made a 1-base change of its length. Each read is drawn from
+    either haplotype with probability 0.5 and read through _flow_read's
+    hmer-error model, which writes its tp and t0 tags.
+
+    Returns dict(fasta=path, bam=path, contig=contig, length=length,
+    variants=[Planted], hmer_indels=[Planted], n_reads=n_reads,
+    flow_order=FLOW_ORDER)."""
+    rng = np.random.default_rng(seed)
+    ref = _ACGT[rng.integers(0, 4, length)]
+    variants = _plant(rng, ref, n_snv, n_indel, min_gap, margin=300)
+    hmer = []
+    for k in [k for k, v in enumerate(variants) if not v.is_snv][:n_hmer_indel]:
+        s = _hmer_plant(ref, variants[k].pos)
+        if s is None:
+            continue
+        a = s - 1
+        if rng.random() < 0.5:
+            variants[k] = Planted(a, bytes(ref[a : a + 2]).decode(), chr(ref[a]))
+        else:
+            variants[k] = Planted(a, chr(ref[a]), chr(ref[a]) + chr(ref[s]))
+        hmer.append(variants[k])
+    alt, alt_where = _alt_haplotype(ref, variants)
+
+    os.makedirs(out_dir, exist_ok=True)
+    fasta = _write_fasta(out_dir, contig, ref)
+    reads = []
+    for k in range(n_reads):
+        src, where = (alt, alt_where) if rng.random() < 0.5 else (ref, np.arange(length))
+        s = int(rng.integers(0, len(src) - read_len + 1))
+        reads.append(_flow_read(rng, k, src[s : s + read_len], where[s : s + read_len]))
+    path = os.path.join(out_dir, "flow.bam")
+    _write_bam(path, contig, length, reads, sample)
+    return dict(fasta=fasta, bam=path, contig=contig, length=length, variants=variants,
+                hmer_indels=hmer, n_reads=n_reads, flow_order=FLOW_ORDER)
+
+
+# (mean, sd) of each annotation of cnn_score.ANNOTATIONS at true sites and at
+# artifacts; FS, SOR and DP are drawn as |N(mean, sd)|
+CALLSET_ANNOTATIONS = (
+    ("MQ", (60.0, 1.5), (38.0, 6.0)),
+    ("DP", (40.0, 6.0), (30.0, 10.0)),
+    ("SOR", (0.7, 0.25), (3.0, 0.8)),
+    ("FS", (2.0, 1.5), (28.0, 7.0)),
+    ("QD", (20.0, 3.0), (4.0, 2.0)),
+    ("MQRankSum", (0.0, 0.6), (-3.0, 1.2)),
+    ("ReadPosRankSum", (0.0, 0.6), (-2.0, 1.0)),
+)
+_ABS_ANNOTATIONS = ("DP", "SOR", "FS")
+
+
+def _cnn_1d_state_dict(rng):
+    """A GATK_CNN_1D state dict (scorevariants/models/gatk_1d.py; the layer
+    shapes of the shipped 1d_cnn_mix_train_full_bn.pt) with PyTorch's default
+    initialisation, uniform in +-1/sqrt(fan_in), drawn with numpy, and batch
+    norm statistics near CALLSET_ANNOTATIONS' true sites."""
+    import torch
+
+    def layer(shape, fan_in):
+        lim = 1.0 / np.sqrt(fan_in)
+        return torch.from_numpy(rng.uniform(-lim, lim, shape).astype(np.float32))
+
+    sd = {}
+    for name, (o, i) in (("conv.0", (256, 4)), ("conv.2", (256, 256)), ("conv.5", (128, 256))):
+        sd[f"{name}.weight"] = layer((o, i, 12), i * 12)
+        sd[f"{name}.bias"] = layer((o,), i * 12)
+    true_mean = np.array([m for _, (m, _), _ in CALLSET_ANNOTATIONS], np.float32)
+    true_sd = np.array([s for _, (_, s), _ in CALLSET_ANNOTATIONS], np.float32)
+    sd["normalize.weight"] = torch.ones(7)
+    sd["normalize.bias"] = torch.zeros(7)
+    sd["normalize.running_mean"] = torch.from_numpy(true_mean)
+    sd["normalize.running_var"] = torch.from_numpy(true_sd ** 2)
+    sd["normalize.num_batches_tracked"] = torch.tensor(0)
+    for name, (o, i) in (("dense_1.0", (40, 7)), ("dense_2.0", (40, 12200)), ("dense_3", (4, 47))):
+        sd[f"{name}.weight"] = layer((o, i), i)
+        sd[f"{name}.bias"] = layer((o,), i)
+    return sd
+
+
+def write_callset(out_dir, seed=0, contig="20", length=20_000_000, n_snv=18000, n_indel=2000,
+                  true_fraction=0.8, truth_fraction=0.6):
+    """Write a sites-only callset for the scoring tools: <out_dir>/callset.fa
+    (+ .fai), one random contig; <out_dir>/callset.vcf, n_snv SNVs and n_indel
+    1-3 bp indels, one site a kb (the density of a germline callset), each a
+    true site with probability true_fraction and otherwise an artifact, with
+    QUAL and the seven annotations of cnn_score.ANNOTATIONS drawn from
+    CALLSET_ANNOTATIONS' two distributions; <out_dir>/truth.vcf, truth_fraction
+    of the true sites; and <out_dir>/cnn_1d.pt, a GATK_CNN_1D state dict made
+    from the seed (_cnn_1d_state_dict).
+
+    Returns dict(fasta, vcf, truth, weights_1d paths, contig, length, sites:
+    [(0-based pos, ref, alt, is_snp, is_true)])."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = n_snv + n_indel
+    ref = _ACGT[rng.integers(0, 4, length)]
+    step = length // n
+    pos = step // 2 + step * np.arange(n) + rng.integers(-step // 4, step // 4 + 1, n)
+    is_indel = np.zeros(n, bool)
+    is_indel[rng.choice(n, n_indel, replace=False)] = True
+    is_true = rng.random(n) < true_fraction
+    in_truth = is_true & (rng.random(n) < truth_fraction)
+    ann = np.empty((n, len(CALLSET_ANNOTATIONS)))
+    for c, (name, good, bad) in enumerate(CALLSET_ANNOTATIONS):
+        ann[:, c] = np.where(is_true, rng.normal(good[0], good[1], n), rng.normal(bad[0], bad[1], n))
+        if name in _ABS_ANNOTATIONS:
+            ann[:, c] = np.abs(ann[:, c])
+    qual = np.where(is_true, rng.normal(400, 120, n), rng.normal(80, 40, n)).clip(30, None)
+    sites = []
+    for k in range(n):
+        p = int(pos[k])
+        r = chr(ref[p])
+        if not is_indel[k]:
+            alt = chr(_ACGT[(np.searchsorted(_ACGT, ref[p]) + rng.integers(1, 4)) % 4])
+            sites.append((p, r, alt, True, bool(is_true[k])))
+        else:
+            ln = int(rng.integers(1, 4))
+            if rng.random() < 0.5:
+                sites.append((p, bytes(ref[p : p + 1 + ln]).decode(), r, False, bool(is_true[k])))
+            else:
+                ins = bytes(_ACGT[rng.integers(0, 4, ln)]).decode()
+                sites.append((p, r, r + ins, False, bool(is_true[k])))
+
+    os.makedirs(out_dir, exist_ok=True)
+    fasta = os.path.join(out_dir, "callset.fa")
+    os.replace(_write_fasta(out_dir, contig, ref), fasta)
+    os.replace(os.path.join(out_dir, "ref.fa.fai"), fasta + ".fai")
+    head = ("##fileformat=VCFv4.2\n" + f"##contig=<ID={contig},length={length}>\n"
+            + "".join(f'##INFO=<ID={name},Number=1,Type=Float,Description="{name}">\n'
+                      for name, _, _ in CALLSET_ANNOTATIONS)
+            + "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+    vcf_path, truth_path = os.path.join(out_dir, "callset.vcf"), os.path.join(out_dir, "truth.vcf")
+    with open(vcf_path, "w") as fh, open(truth_path, "w") as th:
+        fh.write(head)
+        th.write(head)
+        for k, (p, r, a, _, _) in enumerate(sites):
+            info = ";".join(f"{name}={ann[k, c]:.3f}"
+                            for c, (name, _, _) in enumerate(CALLSET_ANNOTATIONS))
+            fh.write(f"{contig}\t{p + 1}\t.\t{r}\t{a}\t{qual[k]:.2f}\t.\t{info}\n")
+            if in_truth[k]:
+                th.write(f"{contig}\t{p + 1}\t.\t{r}\t{a}\t.\tPASS\t.\n")
+    weights = os.path.join(out_dir, "cnn_1d.pt")
+    torch.save(_cnn_1d_state_dict(rng), weights)
+    return dict(fasta=fasta, vcf=vcf_path, truth=truth_path, weights_1d=weights, contig=contig,
+                length=length, sites=sites)

@@ -118,7 +118,6 @@ def test_cli_gvcf_identical_to_jax(sample, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--likelihood-calculation-engine", "FlowBasedHMM"],
     ["--distributed-coordinator", "localhost:1234", "--distributed-num-processes", "2"],
 ])
 def test_unported_options_raise_user_error(sample, tmp_path, flags):

@@ -1,5 +1,5 @@
 """The hand-written kernels (gatk_tpu_torch/csrc/pairhmm_fwd.cu,
-csrc/pairhmm_matrix.cu and csrc/cnv_hmm.cu) on the card.
+csrc/pairhmm_matrix.cu, csrc/cnv_hmm.cu and csrc/flow_pairhmm.cu) on the card.
 
 Every test here needs a CUDA device: the kernels have no CPU mode, so without a
 card they skip. The file imports neither jax nor gatk_tpu, so it also runs where
@@ -481,3 +481,120 @@ def test_germline_cnv_caller_on_card_at_33_states(cuda_device, tmp_path):
     want64 = cnv_hmm.hmm_forward_backward_reference(*(a.double() for a in args))
     torch.cuda.synchronize()
     assert (got.double() - want64).abs().max().item() <= HMM_TOL_F64
+
+
+# --------------------------------------------------------------------------- flow PairHMM
+
+
+def _flow_inputs(seed, read_lens, hap_lens, device):
+    """The flow kernel's inputs for every (read, haplotype) pair of a batch of
+    utils/synthetic.flow_batch, its prior gathered on `device`."""
+    from gatk_tpu_torch.ops import flow, flow_pairhmm
+    from gatk_tpu_torch.utils import synthetic
+
+    hap_bases, read_specs = synthetic.flow_batch(seed, read_lens, hap_lens)
+    haps = [flow.FlowBasedHaplotype(h) for h in hap_bases]
+    reads = [flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
+    tab = flow_pairhmm.pack_flow_tables(haps, reads, device)
+    idx = torch.arange(len(reads) * len(haps), device=device)
+    ri, hi = idx // len(haps), idx % len(haps)
+    return (flow_pairhmm.flow_prior(tab, ri, hi), tab["trans"][ri].contiguous(),
+            tab["rlen"][ri].contiguous(), tab["hlen"][hi].contiguous())
+
+
+def _flow_edges(prior, trans, rlen, hlen):
+    """The batch with pair 0 given no read flows and pair 1 no haplotype flows,
+    as the packer writes such pairs (their priors, and the read's transitions,
+    0)."""
+    prior, trans, rlen, hlen = (t.clone() for t in (prior, trans, rlen, hlen))
+    prior[0] = 0
+    trans[0] = 0
+    rlen[0] = 0
+    prior[1] = 0
+    hlen[1] = 0
+    return prior, trans, rlen, hlen
+
+
+def _flow_close(got, want):
+    from gatk_tpu_torch.ops import flow_pairhmm
+
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and not got.isnan().any()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)) and (got[~fin] == -np.inf).all()
+    assert (got[fin] - want[fin]).abs().max().item() <= TOL
+    return flow_pairhmm
+
+
+@pytest.mark.parametrize("seed,read_lens,hap_lens,edges", [
+    (0, (40, 7, 120, 200, 31), (60, 250, 333, 101), True),  # ragged; W = 5 + Hp
+    (1, (200,), (300,), False),  # B = 1
+    (2, (1, 2, 3, 5), (1, 2, 4, 9), True),  # tiny reads and haplotypes
+    (3, range(20, 220, 20), (180, 240, 600, 420), True),
+    (6, (50, 80, 120), (150,), True),  # W = 232, a multiple of 4 (the others: 495, 471, 26, 857)
+])
+def test_flow_kernel_matches_plain(cuda_device, seed, read_lens, hap_lens, edges):
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    args = _flow_inputs(seed, read_lens, hap_lens, cuda_device)
+    if edges:
+        args = _flow_edges(*args)
+    B, Rp, W = args[0].shape
+    assert int(args[2].max()) == Rp  # a pair with rlen = Rp
+    got = _kernels.flow_pairhmm(*args)
+    want = flow_pairhmm.flow_pairhmm_batch_plain(*args)
+    _flow_close(got, want)
+    if edges:
+        assert got[0].item() == -np.inf and got[1].item() == -np.inf
+
+
+def test_flow_entry_launches_and_counts(cuda_device):
+    from gatk_tpu_torch.ops import flow, flow_pairhmm
+    from gatk_tpu_torch.utils import synthetic
+
+    hap_bases, read_specs = synthetic.flow_batch(4, (150, 90, 210), (260, 300))
+    haps = [flow.FlowBasedHaplotype(h) for h in hap_bases]
+    reads = [flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
+    entry = flow_pairhmm.flow_pairhmm_batch
+    launches, pairs = entry.launches, entry.pairs
+    got = flow_pairhmm.compute_flow_likelihood_matrix(haps, reads, device=cuda_device)
+    assert entry.launches == launches + 1 and entry.pairs == pairs + 6
+    want = flow_pairhmm.compute_flow_likelihood_matrix(haps, reads, device="cpu")
+    assert np.abs(got - want).max() <= TOL
+    host = np.array([[flow_pairhmm.flow_pairhmm_log10(h, r) for h in haps] for r in reads])
+    assert np.abs(got - host).max() <= 2e-3
+
+
+def test_flow_threads_share_the_card(cuda_device):
+    """Six host threads (ShardedCaller's) score their batches at once: each
+    gets its own result."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    batches = [_flow_inputs(10 + s, (60 + 20 * s, 150, 33), (200, 170 + 30 * s), cuda_device)
+               for s in range(6)]
+    want = [flow_pairhmm.flow_pairhmm_batch_plain(*b) for b in batches]
+    with ThreadPoolExecutor(6) as pool:
+        got = list(pool.map(lambda b: [_kernels.flow_pairhmm(*b) for _ in range(20)], batches))
+    for g, w in zip(got, want):
+        for x in g:
+            _flow_close(x, w)
+
+
+def test_flow_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from gatk_tpu_torch.ops import _kernels
+
+    prior, trans, rlen, hlen = _flow_inputs(5, (30, 40), (50,), cuda_device)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        _kernels.flow_pairhmm(prior.cpu(), trans, rlen, hlen)
+    with pytest.raises(ValueError, match="float32"):
+        _kernels.flow_pairhmm(prior.double(), trans, rlen, hlen)
+    with pytest.raises(ValueError, match="int32"):
+        _kernels.flow_pairhmm(prior, trans, rlen.long(), hlen)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.flow_pairhmm(prior.transpose(1, 2).contiguous().transpose(1, 2), trans, rlen, hlen)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((1, 2, 7000), dtype=torch.float32, device=cuda_device)
+        _kernels.flow_pairhmm(wide, torch.zeros((1, 2, 6), device=cuda_device), rlen[:1],
+                              hlen[:1])

@@ -57,7 +57,7 @@ def test_port_imports_neither_jax_nor_gatk_tpu():
 
 
 def test_every_module_named_in_a_header_is_copied():
-    assert len(_copied_files()) == 84
+    assert len(_copied_files()) == 90
 
 
 def _is_import(node):
