@@ -64,7 +64,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
            a homopolymer's length): every planted SNV called 0/1 and >= 5 of 6
            indels, the flow kernel scoring exactly the genotyped regions' reads
            x haplotypes, a profiled second run (idle share), the largest launch
-           held against the plain version and timed beside its bound
+           held against both plain versions (the coset lattice's and the dense
+           scan's) and timed beside its bound, its longest pair's rows and the
+           microseconds a row; the same for the pairs of the earlier dense
+           kernel's largest launch (FLOW_DENSE_LARGEST), where the run makes them
   vqsr     a sites-only callset (utils/synthetic.write_callset: one 20 Mb
            contig, 18,000 SNVs and 2,000 indels, 80 % true sites, the seven
            annotations drawn apart, a truth VCF of 60 % of the true sites, a
@@ -190,7 +193,7 @@ def _entries():
             "pairhmm_fwd_hap_n_mismatch": pairhmm.pairhmm_pairs_hap_n_mismatch,
             "pairhmm_matrix": pairhmm.pairhmm_matrix,
             "cnv_hmm": cnv_hmm.hmm_forward_backward,
-            "flow_pairhmm": flow_pairhmm.flow_pairhmm_batch}
+            "flow_pairhmm": flow_pairhmm.flow_pairhmm_pairs}
 
 
 def reset_counts():
@@ -902,26 +905,38 @@ def phase_main_launch(kept):
 # --------------------------------------------------------------------------- flow
 
 FLOW = dict(seed=0)  # utils/synthetic.write_flow_sample at its defaults: 16,569 bp, 3,400 reads
-# FP32 operations per needed flow DP cell, counted from the plain version
-# (ops/flow_pairhmm.flow_pairhmm_batch_plain): M 5, I 3, D 3 (m * MD, dd * d,
-# the sum), and the row maximum's 3 comparisons
-FLOW_FLOPS_PER_CELL = 14
+# FP32 operations per needed flow DP cell, counted from the kernel's function
+# (csrc/flow_pairhmm.cu): M 5, I 3, D 3 (m * MD, dd * d, the sum), and the 2
+# comparisons of the row maximum of M and I
+FLOW_FLOPS_PER_CELL = 13
+# The largest launch of the earlier dense flow kernel (a block a pair on a
+# gathered (B, Rp, W) prior, which took a region's pairs in parts of whole
+# pairs) on this sample: the first 1,948 pairs of the region whose launch has
+# Rp 260 and W 265; timed again here to set the kernel beside the dense
+# kernel's time on the same pairs (PERF.md)
+FLOW_DENSE_LARGEST = dict(pairs=1948, Rp=260, W=265)
 
 
 @contextlib.contextmanager
 def keeping_flow_launches():
-    """Keeps the inputs of the largest launch of the flow kernel made inside
-    the block (by B x Rp x W) and the shape of every launch."""
-    from gatk_tpu_torch.ops import _kernels
+    """Keeps the inputs (tables, ri, hi) of the largest launch of the flow
+    kernel made inside the block, by pairs x rows x width (B x Rp x (Hp + 5)),
+    the (B, Rp, Hp + 5) of every launch, and as "dense" the pairs of
+    FLOW_DENSE_LARGEST where a launch has its Rp and W."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
 
     launch = _kernels.flow_pairhmm
-    kept = {"n": 0, "shapes": []}
+    kept = {"n": 0, "shapes": [], "dense": None}
+    dense = FLOW_DENSE_LARGEST
 
-    def keep(prior, *args):
-        kept["shapes"].append(tuple(prior.shape))
-        if prior.numel() > kept["n"]:
-            kept.update(n=prior.numel(), args=(prior, *args))
-        return launch(prior, *args)
+    def keep(tab, ri, hi):
+        shape = (ri.numel(), tab["rfo"].shape[1], tab["hkey"].shape[1] + 1 + flow_pairhmm.FLOW_SIZE)
+        kept["shapes"].append(shape)
+        if int(np.prod(shape)) > kept["n"]:
+            kept.update(n=int(np.prod(shape)), args=(tab, ri, hi))
+        if shape[1:] == (dense["Rp"], dense["W"]) and shape[0] >= dense["pairs"]:
+            kept["dense"] = (tab, ri[:dense["pairs"]], hi[:dense["pairs"]])
+        return launch(tab, ri, hi)
 
     _kernels.flow_pairhmm = keep
     try:
@@ -948,42 +963,74 @@ def counting_flow_pairs(hc_engine):
         hc_engine.HaplotypeCallerEngine.finish_region = finish
 
 
-def _flow_bound(prior, trans, rlen, hlen):
-    """The flow kernel's bound on these inputs: the coset cells each pair needs
-    (its rows up to clip(rlen - 1, 0, Rp - 1), ceil((hlen + 1) / 4) columns a
-    row, as the host DP loops), and the bytes of those prior and transition
-    rows, the lengths and the output."""
+def _flow_bound(tab, ri, hi):
+    """The flow kernel's bound on these pairs: the coset cells each pair needs
+    (its rows up to clip(rlen - 1, 0, Rp - 1), ceil((hlen + 5) / 4) cells a
+    row, as GATK's loop and the kernel walk), and each input byte they need
+    read once: of each of their reads its rows of the table and the
+    transitions and its flow bases, of each haplotype its keys and flow bases,
+    the lengths and the pair list; the output written once. Also the rows of
+    the launch's longest pair."""
     from gatk_tpu_torch.ops import flow_pairhmm
 
-    B, Rp, W = prior.shape
-    rows = flow_pairhmm.final_rows(rlen, Rp) + 1
     F = flow_pairhmm.FLOW_SIZE
-    cells = int((rows * ((hlen.long() + F) // F)).sum().item())
-    in_bytes = int(rows.sum().item()) * (W + 6) * 4 + 8 * B
-    return _bound(cells, in_bytes, 4 * B, FLOW_FLOPS_PER_CELL)
+    Rp, T1 = tab["tables"].shape[1:]
+    rows = flow_pairhmm.final_rows(tab["rlen"], Rp) + 1
+    hlen = tab["hlen"].long()
+    ri, hi = ri.long(), hi.long()
+    cells = int((rows[ri] * ((hlen[hi] + 2 * F) // F)).sum().item())
+    reads, haps = torch.unique(ri), torch.unique(hi)
+    in_bytes = (int(rows[reads].sum().item()) * (4 * T1 + 4 * 6 + 1) + 4 * reads.numel()
+                + int(hlen[haps].sum().item()) * (4 + 1) + 4 * haps.numel() + 8 * ri.numel())
+    return dict(_bound(cells, in_bytes, 4 * ri.numel(), FLOW_FLOPS_PER_CELL),
+                rows=int(rows[ri].max().item()))
 
 
-def _flow_case(args, what, plain_reps=3):
-    """The flow kernel against its plain version on one launch's inputs (equal
-    -inf sets, finite values within KERNEL_TOL), timed beside it and its bound."""
-    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
-
-    got = _kernels.flow_pairhmm(*args)
-    want = flow_pairhmm.flow_pairhmm_batch_plain(*args)
-    torch.cuda.synchronize()
+def _flow_err(got, want, what):
+    """max |got - want| over the finite pairs, after checking the shapes, the
+    NaNs and the -inf sets."""
     fin = torch.isfinite(want)
     check(got.shape == want.shape and not got.isnan().any(), f"{what}: NaN or a wrong shape")
     check(torch.equal(fin, torch.isfinite(got)) and bool((got[~fin] == -np.inf).all()),
           f"{what}: kernel and plain version disagree on which pairs are -inf")
     err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
     check(err <= KERNEL_TOL, f"{what}: max |kernel - plain| = {err} > {KERNEL_TOL}")
-    kernel_ms = median_ms(lambda: _kernels.flow_pairhmm(*args), reps=30, warmup=3)
-    plain_ms = median_ms(lambda: flow_pairhmm.flow_pairhmm_batch_plain(*args), reps=plain_reps,
-                         warmup=1)
-    B, Rp, W = args[0].shape
-    bound = _flow_bound(*args)
-    return dict(case=what, pairs=B, Rp=Rp, W=W, finite=int(fin.sum()), max_abs_err=err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
+    return err
+
+
+def _flow_case(args, what, plain_reps=3):
+    """The flow kernel against both plain versions on one launch's inputs: the
+    coset lattice's (flow_pairhmm_pairs_plain) and gatk_tpu's dense scan
+    (flow_pairhmm_batch_plain on the gathered prior); equal -inf sets, finite
+    values within KERNEL_TOL, no read or haplotype flagged. Timed beside both,
+    its bound, the rows of its longest pair and the microseconds a row."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    tab, ri, hi = args
+    got, bad = _kernels.flow_pairhmm(tab, ri, hi)
+    want = flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri, hi)
+    dense_args = (flow_pairhmm.flow_prior(tab, ri, hi), tab["trans"][ri], tab["rlen"][ri],
+                  tab["hlen"][hi])
+    dense = flow_pairhmm.flow_pairhmm_batch_plain(*dense_args)
+    torch.cuda.synchronize()
+    check(bad.tolist() == [0, 0], f"{what}: the kernel flagged flow orders {bad.tolist()}")
+    err = _flow_err(got, want, f"{what} (coset plain version)")
+    err_dense = _flow_err(got, dense, f"{what} (dense plain version)")
+    kernel_ms = median_ms(lambda: _kernels.flow_pairhmm(tab, ri, hi), reps=30, warmup=3)
+    plain_ms = median_ms(lambda: flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri, hi),
+                         reps=plain_reps, warmup=1)
+    dense_ms = median_ms(lambda: flow_pairhmm.flow_pairhmm_batch_plain(*dense_args),
+                         reps=plain_reps, warmup=1)
+    del dense_args
+    bound = _flow_bound(tab, ri, hi)
+    NR, Rp, T1 = tab["tables"].shape
+    Hp = tab["hkey"].shape[1]
+    return dict(case=what, pairs=ri.numel(), reads=NR, haplotypes=tab["hkey"].shape[0], Rp=Rp,
+                Hp=Hp, W=Hp + 1 + flow_pairhmm.FLOW_SIZE, T1=T1,
+                finite=int(torch.isfinite(want).sum()), max_abs_err=max(err, err_dense),
+                max_abs_err_plain=err, max_abs_err_dense=err_dense, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, dense_plain_ms=dense_ms,
+                us_per_row=kernel_ms * 1e3 / bound["rows"],
                 useful_gcups=bound["useful_cells"] / kernel_ms / 1e6, **bound)
 
 
@@ -992,7 +1039,7 @@ def phase_flow(tmp):
     over the whole contig of a flow-space sample (the flow kernel), its calls
     gated as the hc phase's; the kernels must have scored exactly the
     genotyped regions' reads x haplotypes; a profiled second run; the largest
-    launch held against the plain version and timed."""
+    launch held against both plain versions and timed."""
     from gatk_tpu_torch import cli
     from gatk_tpu_torch.calling import hc_engine
     from gatk_tpu_torch.utils import synthetic
@@ -1019,6 +1066,8 @@ def phase_flow(tmp):
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second FlowBasedHMM run wrote a different VCF")
     largest = _flow_case(kept["args"], "FlowBasedHMM's largest launch")
+    dense_largest = (_flow_case(kept["dense"], "the dense kernel's largest launch's pairs")
+                     if kept["dense"] else None)
     res = dict(phase="flow", contig_len=sample["length"], reads=sample["n_reads"],
                write_s=write_s, wall_s=wall, reads_per_s=sample["n_reads"] / wall,
                records=len(recs), snvs_called=len(snvs) - len(missed_snv),
@@ -1027,7 +1076,8 @@ def phase_flow(tmp):
                hmer_indels_called=sum(v.pos in indel_called for v in sample["hmer_indels"]),
                hmer_indels_planted=len(sample["hmer_indels"]), launches=launches,
                pairs=counts["flow_pairhmm"]["pairs"], counts=counts, stages=stages,
-               launch_shapes=kept["shapes"], largest_launch=largest, **profiled)
+               launch_shapes=kept["shapes"], largest_launch=largest,
+               dense_kernel_largest_launch=dense_largest, **profiled)
     emit(res)
     check(not missed_snv, f"flow: planted SNVs not called as 0/1: {missed_snv}")
     check(len(indel_called) >= len(indels) - 1,
@@ -2128,10 +2178,12 @@ def main():
         name="flow_pairhmm", route="cuda", source=src + "flow_pairhmm.cu",
         replaces="gatk_tpu/ops/flow_pairhmm.py:116 (flow_pairhmm_batch_jax under lax.scan; "
                  "not a Pallas kernel)",
+        design="a warp a pair on the coset lattice, prior gathered in the kernel",
         launches=flow["counts"]["flow_pairhmm"]["launches"],
         launches_by_path=by_path("flow_pairhmm"), max_abs_err=fl["max_abs_err"],
-        ms=fl["kernel_ms"], plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"],
-        bound_by=fl["bound_by"], library_ms=None))
+        ms=fl["kernel_ms"], plain_ms=fl["plain_ms"], dense_plain_ms=fl["dense_plain_ms"],
+        bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], rows=fl["rows"],
+        us_per_row=fl["us_per_row"], library_ms=None))
     for kd in kernels:
         kd["max_abs_diff"] = kd["max_abs_err"]
     total_s = time.perf_counter() - t_start

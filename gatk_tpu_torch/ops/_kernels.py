@@ -29,8 +29,10 @@ sequential pass and to 1e-4 plus two float32 rounding steps of the value of
 the chunked plain version.
 
 The flow-space PairHMM kernel (csrc/flow_pairhmm.cu, wrapper `flow_pairhmm`)
-runs one block per (read, haplotype) pair over the read's flow rows, its
-carried rows in shared memory; ops/flow_pairhmm.py holds its plain version.
+runs a warp a (read, haplotype) pair over the coset cells of the read's flow
+rows, its prior gathered from the packed tables inside the kernel, its carried
+rows in registers (in the warp's shared memory for the widest haplotypes);
+ops/flow_pairhmm.py holds its plain version.
 """
 from __future__ import annotations
 
@@ -144,9 +146,9 @@ def _bind_cnv_hmm(lib):
 def _bind_flow_pairhmm(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.flow_pairhmm.restype = i
-    lib.flow_pairhmm.argtypes = [vp] * 5 + [i] * 3 + [vp]
+    lib.flow_pairhmm.argtypes = [vp] * 11 + [i] * 6 + [vp]
     lib.flow_pairhmm_smem.restype = ctypes.c_longlong
-    lib.flow_pairhmm_smem.argtypes = [i]
+    lib.flow_pairhmm_smem.argtypes = [i, i, ctypes.POINTER(i)]
 
 
 def plan_groups(rows: torch.Tensor, hlen: torch.Tensor | None = None, hmax: int = 0):
@@ -369,40 +371,54 @@ def cnv_hmm_dependent_steps(T: int, chunk: int = CNV_HMM_CHUNK) -> int:
 
 
 FLOW_MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+FLOW_TABLES = {"tables": (torch.float32, 3), "rfo": (torch.uint8, 2),
+               "trans": (torch.float32, 3), "rlen": (torch.int32, 1),
+               "hkey": (torch.int32, 2), "hfo": (torch.uint8, 2), "hlen": (torch.int32, 1)}
 
 
-def flow_pairhmm(prior: torch.Tensor, trans: torch.Tensor, rlen: torch.Tensor,
-                 hlen: torch.Tensor) -> torch.Tensor:
+def flow_pairhmm(tab, ri: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the flow-space PairHMM kernel (csrc/flow_pairhmm.cu) on PyTorch's
-    current stream: (B,) f32 log10 likelihoods of the pairs of prior
-    (B, Rp, W) f32, trans (B, Rp, 6) f32 and rlen, hlen (B,) int32, all
-    contiguous on one CUDA device (ops/flow_pairhmm.py states the DP). A
-    block holds 9 rows of W (rounded up to a multiple of 4) floats in shared
-    memory, so W is at most 6,456."""
+    current stream over the pairs (read ri[b], haplotype hi[b]) of `tab`
+    (ops/flow_pairhmm.pack_flow_tables: tables (NR, Rp, T1) f32, rfo (NR, Rp)
+    u8, trans (NR, Rp, 6) f32, rlen (NR,) i32, hkey (NH, Hp) i32, hfo
+    (NH, Hp) u8, hlen (NH,) i32), all contiguous on one CUDA device; ri, hi
+    (B,) int32. Returns (out, bad) without waiting: out (B,) f32 log10
+    likelihoods (ops/flow_pairhmm.py states the DP; NaN for indices or lengths
+    out of range), bad (2,) int32, 1 + the largest index of a read and of a
+    haplotype whose flow bases break the coset rule, 0 where none does
+    (ops/flow_pairhmm.coset_rule_breaks). A haplotype of up to 507 flows
+    keeps its state in registers; a wider one in shared memory, which holds
+    Hp up to about 21,000 flows."""
     what = "flow_pairhmm"
-    dev = prior.device
-    _check(dev.type == "cuda", what, f"prior is on {dev}, not a CUDA device")
-    _check(prior.dim() == 3, what, "prior must be (B, Rp, W)")
-    B, Rp, W = prior.shape
-    _check(B > 0 and Rp > 0 and W > 0, what, f"needs B, Rp, W > 0: {(B, Rp, W)}")
-    _check(trans.shape == (B, Rp, 6), what, f"trans must be (B, Rp, 6) = {(B, Rp, 6)}")
-    _check(rlen.shape == (B,) and hlen.shape == (B,), what, "rlen and hlen must be (B,)")
-    for t in (prior, trans):
-        _check(t.dtype == torch.float32, what, "prior and trans must be float32")
-    for t in (rlen, hlen):
-        _check(t.dtype == torch.int32, what, "rlen and hlen must be int32")
-    for t in (prior, trans, rlen, hlen):
+    dev = tab["tables"].device
+    _check(dev.type == "cuda", what, f"tables are on {dev}, not a CUDA device")
+    for name, (dtype, dim) in FLOW_TABLES.items():
+        t = tab[name]
+        _check(t.dtype == dtype and t.dim() == dim, what, f"{name} must be {dim}-D {dtype}")
         _check(t.device == dev, what, f"all operands must be on {dev}")
         _check(t.is_contiguous(), what, "all operands must be contiguous")
-    _check(B < 2 ** 31 and Rp * 6 < 2 ** 31, what, "operands too large")
+    NR, Rp, T1 = tab["tables"].shape
+    NH, Hp = tab["hkey"].shape
+    _check(tab["rfo"].shape == (NR, Rp) and tab["trans"].shape == (NR, Rp, 6)
+           and tab["rlen"].shape == (NR,), what,
+           "rfo, trans and rlen must be (NR, Rp), (NR, Rp, 6) and (NR,) of tables (NR, Rp, T1)")
+    _check(tab["hfo"].shape == (NH, Hp) and tab["hlen"].shape == (NH,), what,
+           "hfo and hlen must be (NH, Hp) and (NH,) of hkey (NH, Hp)")
+    _check_pairs(ri, hi, dev, what)
+    B = ri.numel()
+    _check(B > 0 and NR > 0 and NH > 0 and Rp > 0, what,
+           f"needs pairs, reads, haplotypes and flows: B={B}, NR={NR}, NH={NH}, Rp={Rp}")
+    _check(0 < T1 < 0xFFFF, what, f"T1 = {T1} table columns: keys must fit 16 bits")
     lib = library("flow_pairhmm")
-    smem = lib.flow_pairhmm_smem(W)
+    warps = ctypes.c_int(0)
+    smem = lib.flow_pairhmm_smem(Hp, T1, ctypes.byref(warps))
     _check(smem <= FLOW_MAX_SMEM, what,
-           f"W = {W} needs {smem} bytes of shared memory a block, over {FLOW_MAX_SMEM}")
+           f"Hp = {Hp}, T1 = {T1} need {smem} bytes of shared memory a block, over {FLOW_MAX_SMEM}")
     out = torch.empty(B, dtype=torch.float32, device=dev)
+    bad = torch.zeros(2, dtype=torch.int32, device=dev)
+    tensors = [tab[name] for name in FLOW_TABLES] + [ri, hi, out, bad]
     with torch.cuda.device(dev):
-        rc = lib.flow_pairhmm(prior.data_ptr(), trans.data_ptr(), rlen.data_ptr(),
-                              hlen.data_ptr(), out.data_ptr(), B, Rp, W,
+        rc = lib.flow_pairhmm(*(t.data_ptr() for t in tensors), B, NR, Rp, T1, NH, Hp,
                               torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if_failed(lib, rc, what, f"B={B}, Rp={Rp}, W={W}")
-    return out
+    _raise_if_failed(lib, rc, what, f"B={B}, Rp={Rp}, T1={T1}, Hp={Hp}")
+    return out, bad

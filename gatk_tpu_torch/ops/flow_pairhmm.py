@@ -12,21 +12,27 @@ where read/hap flow nucleotides agree — which for period-4 cyclic flow orders
 confines each DP to one (j - i) mod 4 coset, so the batched version computes
 dense rows safely (off-coset cells stay exactly zero).
 
-`flow_pairhmm_log10` is the host float64 reference, as gatk_tpu writes it. The
-batched DP, `flow_pairhmm_batch(prior, trans, rlen, hlen)`, runs row by row over
-the read's flows in float32 with the row renormalisation of gatk_tpu's
-flow_pairhmm_batch_jax (:116-194): a running log10 offset in place of the
-2^1020 scale. On a CUDA tensor it launches the hand-written Hopper kernel
-csrc/flow_pairhmm.cu (ops/_kernels.flow_pairhmm) and raises if the launch
-fails; on a CPU tensor it runs `flow_pairhmm_batch_plain`, the plain PyTorch
-version, which is also the kernel's oracle. Its `launches` and `pairs` count
-the kernel's launches and the pairs they scored.
+`flow_pairhmm_log10` is the host float64 reference, as gatk_tpu writes it. Both
+batched versions run row by row over the read's flows in float32 with the row
+renormalisation of gatk_tpu's flow_pairhmm_batch_jax (:116-194): a running
+log10 offset in place of the 2^1020 scale.
 
-`compute_flow_likelihood_matrix` builds the batch's prior on the device, by a
-gather from each read's probability table and each haplotype's key and flow
-bases (`flow_prior`), where gatk_tpu packs the dense (B, Rp, W) array on the
-host (`_pack_flow_batch`, kept here as the gather's oracle): the two are equal
-bit for bit.
+`flow_pairhmm_pairs(tab, ri, hi)` scores the pairs (read ri[b], haplotype
+hi[b]) of the tables `pack_flow_tables` uploads, on the coset cells alone, as
+GATK loops: on a CUDA tensor it launches the hand-written Hopper kernel
+csrc/flow_pairhmm.cu (ops/_kernels.flow_pairhmm), which gathers each cell's
+prior from the tables itself, and raises if the launch fails; on a CPU tensor
+it runs `flow_pairhmm_pairs_plain`, the plain PyTorch version on the same
+lattice, which is also the kernel's oracle. Both need flow bases that repeat
+with period 4 over four distinct bases (`coset_rule_breaks`), and the entry
+raises ValueError where they do not. Its `launches` and `pairs` count the
+kernel's launches and the pairs they scored.
+
+`flow_pairhmm_batch_plain(prior, trans, rlen, hlen)` is gatk_tpu's dense scan
+in PyTorch, on the (B, Rp, W) prior `flow_prior` gathers from the same tables
+(equal bit for bit to gatk_tpu's host packing `_pack_flow_batch`, kept here as
+the gather's oracle). `compute_flow_likelihood_matrix` runs it on the CPU, so
+that the CPU result is gatk_tpu's, and the kernel on a card.
 """
 from __future__ import annotations
 
@@ -41,8 +47,8 @@ from .flow import FlowBasedHaplotype, FlowBasedRead
 from .pairhmm import _Counted
 
 FLOW_SIZE = 4
-# floats of the dense prior one launch may take (512 MiB); a larger batch of
-# pairs is cut into launches of whole pairs
+# floats of the dense prior the CPU route builds at once (512 MiB); a larger
+# batch of pairs is cut into parts of whole pairs
 MAX_PRIOR_FLOATS = 1 << 27
 
 
@@ -142,7 +148,7 @@ def pack_flow_tables(haps, reads, device):
     `device`: dict(tables (NR, Rp, hmax + 1) f32, row f of read r holding
     P(true hmer = h | flow f) for h = 0..hmax (the read's prob_table), rfo
     (NR, Rp) uint8 flow bases, trans (NR, Rp, 6) f32 transition rows,
-    rlen (NR,) int32; hkey (NH, Hp) int64 keys, hfo (NH, Hp) uint8 flow bases,
+    rlen (NR,) int32; hkey (NH, Hp) int32 keys, hfo (NH, Hp) uint8 flow bases,
     hlen (NH,) int32), with hmax the largest key of any haplotype. Rows past a
     read's flows and columns past a haplotype's carry flow bases that match
     nothing, so their priors are 0."""
@@ -160,7 +166,7 @@ def pack_flow_tables(haps, reads, device):
         tables[ri, :R] = rd.prob_table(hmax)
         rfo[ri, :R] = rd.flow_order_array
         trans[ri, :R] = pm.qual_to_trans_probs(*rd.key_space_quals())
-    hkey = np.zeros((nh, Hp), np.int64)
+    hkey = np.zeros((nh, Hp), np.int32)
     hfo = np.full((nh, Hp), HAP_PAD, np.uint8)
     hlen = np.zeros(nh, np.int32)
     for hi, hp in enumerate(haps):
@@ -181,7 +187,8 @@ def flow_prior(tables, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     Hp are the largest of those pairs."""
     B = ri.numel()
     Rp, Hp = tables["rfo"].shape[1], tables["hkey"].shape[1]
-    vals = torch.gather(tables["tables"][ri], 2, tables["hkey"][hi][:, None, :].expand(B, Rp, Hp))
+    keys = tables["hkey"][hi].long()
+    vals = torch.gather(tables["tables"][ri], 2, keys[:, None, :].expand(B, Rp, Hp))
     same = tables["rfo"][ri][:, :, None] == tables["hfo"][hi][:, None, :]
     prior = torch.zeros((B, Rp, Hp + 1 + FLOW_SIZE), dtype=torch.float32, device=ri.device)
     prior[:, :, 1 + FLOW_SIZE:] = torch.where(same, vals, 0.0)
@@ -193,20 +200,24 @@ def _shift(x, n):
     return torch.nn.functional.pad(x, (n, 0))[:, : x.shape[1]]
 
 
-def _deletion_row(a, dd):
-    """d[:, j] = a[:, j] + dd * d[:, j - 4] along each of the four stride-4
-    chains, starting at 0: an inclusive scan of the affine maps (dd, a), by
-    doubling (log2 of the chain length steps). a (B, Wp), Wp a multiple of 4;
-    dd (B, 1)."""
-    B, Wp = a.shape
-    b = a.view(B, Wp // FLOW_SIZE, FLOW_SIZE)
-    A = dd[:, :, None].expand_as(b)
+def _affine_scan(b, dd):
+    """x[:, g] = b[:, g] + dd * x[:, g - 1] along dim 1, from x[:, -1] = 0: an
+    inclusive scan of the affine maps (dd, b), by doubling (log2 of the
+    length steps). dd broadcasts to b."""
+    A = dd.expand_as(b)
     s = 1
     while s < b.shape[1]:
         b = torch.cat([b[:, :s], b[:, s:] + A[:, s:] * b[:, :-s]], dim=1)
         A = torch.cat([A[:, :s], A[:, s:] * A[:, :-s]], dim=1)
         s *= 2
-    return b.reshape(B, Wp)
+    return b
+
+
+def _deletion_row(a, dd):
+    """d[:, j] = a[:, j] + dd * d[:, j - 4] along each of the four stride-4
+    chains, starting at 0. a (B, Wp), Wp a multiple of 4; dd (B, 1)."""
+    B, Wp = a.shape
+    return _affine_scan(a.view(B, Wp // FLOW_SIZE, FLOW_SIZE), dd[:, :, None]).reshape(B, Wp)
 
 
 def final_rows(rlen: torch.Tensor, Rp: int) -> torch.Tensor:
@@ -216,9 +227,11 @@ def final_rows(rlen: torch.Tensor, Rp: int) -> torch.Tensor:
 
 def flow_pairhmm_batch_plain(prior: torch.Tensor, trans: torch.Tensor, rlen: torch.Tensor,
                              hlen: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of the batched flow PairHMM (and of
-    csrc/flow_pairhmm.cu): (B,) f32 log10 likelihoods from prior (B, Rp, W) f32
-    already masked to the coset, trans (B, Rp, 6) f32, rlen, hlen (B,) int.
+    """gatk_tpu's dense batched flow PairHMM in PyTorch, the CPU route of
+    compute_flow_likelihood_matrix and the kernel's second oracle: (B,) f32
+    log10 likelihoods from prior (B, Rp, W) f32 already masked to the coset
+    (flow_prior), trans (B, Rp, 6) f32, rlen, hlen (B,) int. Every column of
+    the batch's W is computed, the off-coset ones too.
 
     The steps of gatk_tpu's flow_pairhmm_batch_jax (:116-194) in its order,
     a loop over the read's flows k: a 4-row history of M and I, the previous
@@ -266,45 +279,179 @@ def flow_pairhmm_batch_plain(prior: torch.Tensor, trans: torch.Tensor, rlen: tor
     return out + acc_at
 
 
-class _FlowEntry(_Counted):
-    """`flow_pairhmm_batch(prior, trans, rlen, hlen)`: CUDA tensors launch the
-    Hopper kernel (ops/_kernels.flow_pairhmm), CPU tensors run
-    flow_pairhmm_batch_plain. `launches` and `pairs` count the kernel's
-    launches and the pairs they scored; the plain version is not counted."""
+def coset_rule_breaks(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(2,) int32 on the tables' device: 1 + the largest index of a read of
+    ri, and of a haplotype of hi, whose flow bases within its length break the
+    coset rule, 0 where none does. The rule: the bases repeat with period
+    FLOW_SIZE over FLOW_SIZE distinct bases (TGCA, as HaplotypeCaller's
+    --flow-order gives them), which confines every pair's nonzero DP cells to
+    one (column - row) mod 4 coset. The kernel flags the same reads and
+    haplotypes in its own pass."""
 
-    def __call__(self, prior: torch.Tensor, trans: torch.Tensor, rlen: torch.Tensor,
-                 hlen: torch.Tensor) -> torch.Tensor:
-        if prior.device.type == "cpu":
-            return flow_pairhmm_batch_plain(prior, trans, rlen, hlen)
+    def breaks(fo, lens, used):
+        n, L = fo.shape
+        f = torch.arange(L, device=fo.device)
+        inside = f[None, :] < lens[:, None]
+        bad = (fo != fo[:, f % FLOW_SIZE]) & inside
+        for a in range(1, min(FLOW_SIZE, L)):
+            for b in range(a):
+                bad[:, a] |= (fo[:, a] == fo[:, b]) & inside[:, a]
+        idx = torch.arange(1, n + 1, dtype=torch.int32, device=fo.device)
+        return (idx * (bad.any(dim=1) & used)).max()
+
+    out = []
+    for fo, lens, pick in ((tab["rfo"], tab["rlen"], ri), (tab["hfo"], tab["hlen"], hi)):
+        used = torch.zeros(fo.shape[0], dtype=torch.bool, device=fo.device)
+        used[pick.long()] = True
+        out.append(breaks(fo, lens, used))
+    return torch.stack(out).to(torch.int32)
+
+
+def raise_if_rule_broken(tab, bad: torch.Tensor):
+    """ValueError naming the flow order of the read or haplotype that `bad`
+    (coset_rule_breaks, or the kernel's flags) names, if it names one. Reading
+    `bad` is the one host synchronisation of a call."""
+    tables = (("read", tab["rfo"], tab["rlen"]), ("haplotype", tab["hfo"], tab["hlen"]))
+    for (kind, fo, lens), flag in zip(tables, bad.tolist()):
+        i = flag - 1
+        if i < 0:
+            continue
+        order = bytes(fo[i, : min(int(lens[i]), 2 * FLOW_SIZE)].tolist()).decode("latin-1")
+        raise ValueError(
+            f"flow order {order!r}... of {kind} {i} does not repeat with period {FLOW_SIZE} "
+            f"over {FLOW_SIZE} distinct bases: the flow PairHMM on the card computes the one "
+            f"(column - row) mod {FLOW_SIZE} coset of the DP that GATK's FlowBasedPairHMM "
+            "loops over, which needs such an order")
+
+
+def flow_pairhmm_pairs_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of csrc/flow_pairhmm.cu: (B,) f32 log10
+    likelihoods of the pairs (read ri[b], haplotype hi[b]) of `tab`
+    (pack_flow_tables), on the coset lattice that GATK's loop and the kernel
+    walk.
+
+    Row k of a pair holds the cells g < G = ceil((hlen + 5) / 4), cell g at DP
+    column 4 g + r_k, r_k = (5 + k + s) mod 4, s the pair's _starting_point
+    (the first of its haplotype's first four flows reading the read's first
+    base, else 0): haplotype flow j = 4 g + r_k - 5, prior
+    tables[ri, k, hkey[hi, j]] where 0 <= j < hlen and the read's and the
+    haplotype's flow bases agree, else 0. M pulls cell g of row k - 1, or
+    g - 1 where r_k = 0; I cell g of row k - 4; D cell g - 1 of its own row;
+    D starts at 1 / max(hlen, 1) in every cell of row -1 and is 0 at cells
+    >= G. The rest is flow_pairhmm_batch_plain's: the row's M + I sum kept at
+    k = clip(rlen - 1, 0, Rp - 1), the carried rows divided by the row's
+    maximum c (1 where c <= 0), log10(c) added to a float32 offset. Where the
+    flow bases keep the coset rule (coset_rule_breaks) the dense version's
+    cells off this lattice are 0, and both give one log10 likelihood up to
+    float32 rounding; the kernel takes each row's c from M and I alone,
+    which changes only the rounding too. A pair whose rlen is outside
+    [0, Rp] or hlen outside [0, Hp] gives NaN, as in the kernel."""
+    ri, hi = ri.long(), hi.long()
+    B = ri.numel()
+    dev = tab["tables"].device
+    Rp, Hp = tab["rfo"].shape[1], tab["hfo"].shape[1]
+    if B == 0:
+        return torch.zeros(0, dtype=torch.float32, device=dev)
+    R, H = tab["rlen"][ri].long(), tab["hlen"][hi].long()
+    out_of_range = (R < 0) | (R > Rp) | (H < 0) | (H > Hp)
+    H = H.clamp(0, Hp)
+    kf = final_rows(R, Rp)
+    G = (H + 1 + 2 * FLOW_SIZE - 1) // FLOW_SIZE
+    g = torch.arange(int(G.max()), device=dev)
+    inside = g[None, :] < G[:, None]
+    rfo, hfo, hkey = tab["rfo"][ri], tab["hfo"][hi], tab["hkey"][hi].long()
+    first = torch.arange(min(FLOW_SIZE, Hp), device=dev)
+    hits = (hfo[:, : len(first)] == rfo[:, :1]) & (first[None, :] < H[:, None])
+    s = torch.where(hits.any(dim=1), hits.int().argmax(dim=1), 0)
+    zeros = torch.zeros((B, len(g)), dtype=torch.float32, device=dev)
+    d_prev = (1.0 / H.float().clamp(min=1.0))[:, None].expand(B, len(g))
+    m_hist, i_hist = [zeros] * 4, [zeros] * 4
+    acc = torch.zeros(B, dtype=torch.float32, device=dev)
+    total = torch.zeros(B, dtype=torch.float32, device=dev)
+    acc_at = torch.zeros(B, dtype=torch.float32, device=dev)
+    MM, IM = pm.MATCH_TO_MATCH, pm.INDEL_TO_MATCH
+    MI, II = pm.MATCH_TO_INSERTION, pm.INSERTION_TO_INSERTION
+    MD, DD = pm.MATCH_TO_DELETION, pm.DELETION_TO_DELETION
+    for k in range(int(kf.max()) + 1):
+        r = (1 + FLOW_SIZE + k + s) % FLOW_SIZE
+        j = FLOW_SIZE * g[None, :] + r[:, None] - 1 - FLOW_SIZE
+        valid = (j >= 0) & (j < H[:, None])
+        if Hp:
+            jc = j.clamp(0, Hp - 1)
+            key, base = torch.gather(hkey, 1, jc), torch.gather(hfo, 1, jc)
+            vals = torch.gather(tab["tables"][ri, k], 1, key)
+            prior = torch.where(valid & (base == rfo[:, k:k + 1]), vals, 0.0)
+        else:
+            prior = zeros
+        t = tab["trans"][ri, k]
+        q = m_hist[3] * t[:, MM:MM + 1] + (i_hist[3] + d_prev) * t[:, IM:IM + 1]
+        m_row = prior * torch.where((r == 0)[:, None], _shift(q, 1), q)
+        i_row = m_hist[0] * t[:, MI:MI + 1] + i_hist[0] * t[:, II:II + 1]
+        d_row = _affine_scan(_shift(m_row, 1) * t[:, MD:MD + 1], t[:, DD:DD + 1])
+        d_row = torch.where(inside, d_row, 0.0)
+        here = kf == k
+        total = torch.where(here, (m_row + i_row).sum(dim=1), total)
+        acc_at = torch.where(here, acc, acc_at)
+        c = torch.maximum(torch.maximum(m_row.amax(dim=1), i_row.amax(dim=1)), d_row.amax(dim=1))
+        c = torch.where(c > 0, c, torch.ones_like(c))
+        inv = (1.0 / c)[:, None]
+        m_hist = [m_hist[1] * inv, m_hist[2] * inv, m_hist[3] * inv, m_row * inv]
+        i_hist = [i_hist[1] * inv, i_hist[2] * inv, i_hist[3] * inv, i_row * inv]
+        d_prev = d_row * inv
+        acc = acc + torch.log10(c)
+    out = torch.where(total > 0, torch.log10(total.clamp(min=1e-38)),
+                      torch.full_like(total, -math.inf)) + acc_at
+    return torch.where(out_of_range, torch.full_like(out, math.nan), out)
+
+
+class _FlowEntry(_Counted):
+    """`flow_pairhmm_pairs(tab, ri, hi)`: tables on a CUDA device launch the
+    Hopper kernel (ops/_kernels.flow_pairhmm), tables on the CPU run
+    flow_pairhmm_pairs_plain; either raises ValueError where a read's or a
+    haplotype's flow bases break the coset rule (the kernel flags them, and
+    the entry reads its flags once a call). `launches` and `pairs` count the
+    kernel's launches and the pairs they scored; the plain version is not
+    counted."""
+
+    def __call__(self, tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+        if tab["tables"].device.type == "cpu":
+            raise_if_rule_broken(tab, coset_rule_breaks(tab, ri, hi))
+            return flow_pairhmm_pairs_plain(tab, ri, hi)
         from . import _kernels
 
-        out = _kernels.flow_pairhmm(prior, trans, rlen, hlen)
-        self._count(prior.shape[0])
+        out, bad = _kernels.flow_pairhmm(tab, ri, hi)
+        self._count(ri.numel())
+        raise_if_rule_broken(tab, bad)
         return out
 
 
-flow_pairhmm_batch = _FlowEntry()
+flow_pairhmm_pairs = _FlowEntry()
 
 
 def compute_flow_likelihood_matrix(haps, reads, device=None) -> np.ndarray:
-    """(n_reads, n_haps) float64 log10 matrix via the batched DP on `device`
-    (devices.resolve_device: the port's default unless given; raises for CUDA
-    without a card). The prior is gathered on the device, MAX_PRIOR_FLOATS
-    at most a launch."""
-    pairs = [(ri, hi) for ri in range(len(reads)) for hi in range(len(haps))]
+    """(n_reads, n_haps) float64 log10 matrix of every read with every
+    haplotype on `device` (devices.resolve_device: the port's default unless
+    given; raises for CUDA without a card). On a card: one launch of the
+    kernel over the region (flow_pairhmm_pairs). On the CPU: gatk_tpu's
+    dense scan (flow_pairhmm_batch_plain on flow_prior), MAX_PRIOR_FLOATS of
+    prior at a time, so that the result is gatk_tpu's."""
+    pairs = len(reads) * len(haps)
     if not pairs:
         return np.zeros((len(reads), len(haps)))
     dev = resolve_device(device)
     tab = pack_flow_tables(haps, reads, dev)
     nh = len(haps)
-    idx = torch.arange(len(pairs), device=dev)
-    ri_all, hi_all = (idx // nh), (idx % nh)
-    Rp, Hp = tab["rfo"].shape[1], tab["hkey"].shape[1]
-    step = max(1, MAX_PRIOR_FLOATS // (Rp * (Hp + 1 + FLOW_SIZE)))
-    outs = []
-    for lo in range(0, len(pairs), step):
-        ri, hi = ri_all[lo:lo + step], hi_all[lo:lo + step]
-        outs.append(flow_pairhmm_batch(flow_prior(tab, ri, hi), tab["trans"][ri],
-                                       tab["rlen"][ri], tab["hlen"][hi]))
-    out = torch.cat(outs)
+    idx = torch.arange(pairs, dtype=torch.int32, device=dev)
+    ri_all, hi_all = idx // nh, idx % nh
+    if dev.type != "cpu":
+        out = flow_pairhmm_pairs(tab, ri_all, hi_all)
+    else:
+        Rp, Hp = tab["rfo"].shape[1], tab["hkey"].shape[1]
+        step = max(1, MAX_PRIOR_FLOATS // (Rp * (Hp + 1 + FLOW_SIZE)))
+        outs = []
+        for lo in range(0, pairs, step):
+            ri, hi = ri_all[lo:lo + step], hi_all[lo:lo + step]
+            outs.append(flow_pairhmm_batch_plain(flow_prior(tab, ri, hi), tab["trans"][ri],
+                                                 tab["rlen"][ri], tab["hlen"][hi]))
+        out = torch.cat(outs)
     return out.cpu().numpy().astype(np.float64).reshape(len(reads), len(haps))

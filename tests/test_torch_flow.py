@@ -2,11 +2,14 @@
 
 The same flow-space reads and haplotypes (made from a seed with numpy, or
 tests/test_flow.py's) go through gatk_tpu's batched flow PairHMM
-(flow_pairhmm_batch_jax, its lax.scan on the CPU) and the port's plain version
-flow_pairhmm_batch_plain (the oracle of csrc/flow_pairhmm.cu), on the same
-packed arrays; both are held to the host float64 DP within gatk_tpu's own 2e-3
-(tests/test_flow.py). Then the prior the port gathers on the device against
-gatk_tpu's host packing, bit for bit; HaplotypeCaller
+(flow_pairhmm_batch_jax, its lax.scan on the CPU) and the port's dense plain
+version flow_pairhmm_batch_plain (the CPU route), on the same packed arrays;
+both are held to the host float64 DP within gatk_tpu's own 2e-3
+(tests/test_flow.py). The port's plain version of csrc/flow_pairhmm.cu,
+flow_pairhmm_pairs_plain, which walks the coset lattice from the packed
+tables, is held to both batched versions, and the entry's coset rule is shown
+to refuse a flow order that is not 4-periodic. Then the prior the port gathers
+on the device against gatk_tpu's host packing, bit for bit; HaplotypeCaller
 --likelihood-calculation-engine FlowBasedHMM through both CLIs (the port with
 --device cpu) on a synthetic flow sample; and the flow tools.
 """
@@ -73,8 +76,8 @@ def test_plain_batch_matches_jax_batch_and_host(seed, read_lens, hap_lens, edges
     packed = _edges(jax_fp._pack_flow_batch(haps, reads, pairs), edges)
     want = np.asarray(jax_fp.flow_pairhmm_batch_jax(packed["prior"], packed["trans"],
                                                     packed["rlen"], packed["hlen"]))
-    got = port_fp.flow_pairhmm_batch(*(torch.from_numpy(packed[k])
-                                       for k in ("prior", "trans", "rlen", "hlen"))).numpy()
+    got = port_fp.flow_pairhmm_batch_plain(*(torch.from_numpy(packed[k])
+                                             for k in ("prior", "trans", "rlen", "hlen"))).numpy()
     assert got.shape == want.shape == (len(pairs),)
     assert np.array_equal(np.isneginf(got), np.isneginf(want)) and np.isfinite(want).any()
     fin = np.isfinite(want)
@@ -85,6 +88,115 @@ def test_plain_batch_matches_jax_batch_and_host(seed, read_lens, hap_lens, edges
             continue
         host = jax_fp.flow_pairhmm_log10(haps[hi], reads[ri])
         assert abs(got[b] - host) <= HOST_TOL and abs(want[b] - host) <= HOST_TOL, (b, host)
+
+
+def _tables_and_packed(seed, read_lens, hap_lens, edges):
+    """The port's tables (pack_flow_tables, on the CPU) and pair lists, and
+    gatk_tpu's packed arrays of the same pairs, with read 0 given no flows
+    ("rlen0") and haplotype 1 none ("hlen0") in both, as the packers write
+    such a read or haplotype."""
+    hap_bases, read_specs = synthetic.flow_batch(seed, read_lens, hap_lens)
+    haps, reads = _objects(jax_flow, hap_bases, read_specs)
+    pairs = [(ri, hi) for ri in range(len(reads)) for hi in range(len(haps))]
+    packed = jax_fp._pack_flow_batch(haps, reads, pairs)
+    tab = port_fp.pack_flow_tables(*_objects(port_flow, hap_bases, read_specs), "cpu")
+    ri = torch.tensor([p[0] for p in pairs], dtype=torch.int32)
+    hi = torch.tensor([p[1] for p in pairs], dtype=torch.int32)
+    if "rlen0" in edges:
+        for k, v in (("tables", 0), ("trans", 0), ("rlen", 0), ("rfo", port_fp.READ_PAD)):
+            tab[k][0] = v
+        of_read = (ri == 0).numpy()
+        packed["prior"][of_read] = 0
+        packed["trans"][of_read] = 0
+        packed["rlen"][of_read] = 0
+    if "hlen0" in edges:
+        for k, v in (("hkey", 0), ("hlen", 0), ("hfo", port_fp.HAP_PAD)):
+            tab[k][1] = v
+        of_hap = (hi == 1).numpy()
+        packed["prior"][of_hap] = 0
+        packed["hlen"][of_hap] = 0
+    return tab, ri, hi, packed
+
+
+@pytest.mark.parametrize("seed,read_lens,hap_lens,edges", CASES)
+def test_pairs_plain_matches_jax_batch(seed, read_lens, hap_lens, edges):
+    """The coset lattice's plain version against gatk_tpu's dense scan, on the
+    same pairs: within BATCH_TOL, the same -inf pairs. Every case has a read
+    with Rp flows and pairs whose hlen is far below Hp; W = Hp + 5 takes every
+    residue mod 4; rlen 0 and hlen 0 where the case asks."""
+    tab, ri, hi, packed = _tables_and_packed(seed, read_lens, hap_lens, edges)
+    assert int(tab["rlen"].max()) == tab["rfo"].shape[1] == packed["Rp"]
+    want = np.asarray(jax_fp.flow_pairhmm_batch_jax(packed["prior"], packed["trans"],
+                                                    packed["rlen"], packed["hlen"]))
+    got = port_fp.flow_pairhmm_pairs_plain(tab, ri, hi).numpy()
+    assert got.shape == want.shape == (len(ri),) and got.dtype == np.float32
+    assert np.array_equal(np.isneginf(got), np.isneginf(want)) and np.isfinite(want).any()
+    fin = np.isfinite(want)
+    assert np.abs(got[fin] - want[fin]).max() <= BATCH_TOL
+    if "rlen0" in edges:
+        assert np.isneginf(got[(ri == 0).numpy()]).all()
+    if "hlen0" in edges:
+        assert np.isneginf(got[(hi == 1).numpy()]).all()
+
+
+@pytest.mark.parametrize("seed,read_lens,hap_lens,edges", CASES)
+def test_pairs_entry_matches_dense_plain(seed, read_lens, hap_lens, edges):
+    """The entry on CPU tables (its coset rule checked, then the coset plain
+    version) against the port's dense plain version on the gathered prior."""
+    tab, ri, hi, _ = _tables_and_packed(seed, read_lens, hap_lens, edges)
+    assert port_fp.coset_rule_breaks(tab, ri, hi).tolist() == [0, 0]
+    got = port_fp.flow_pairhmm_pairs(tab, ri, hi)
+    want = port_fp.flow_pairhmm_batch_plain(port_fp.flow_prior(tab, ri, hi), tab["trans"][ri],
+                                            tab["rlen"][ri], tab["hlen"][hi])
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)) and fin.any()
+    assert (got[~fin] == -np.inf).all()
+    assert (got[fin] - want[fin]).abs().max().item() <= BATCH_TOL
+
+
+EIGHT = "TGCATGAC"  # an 8-letter flow order that does not repeat with period 4
+
+
+def test_coset_rule_refuses_an_order_that_is_not_4_periodic():
+    """coset_rule_breaks, the check the CUDA entry makes (its kernel flags the
+    same reads and haplotypes), run on CPU tables: TGCA and ACGT keep the
+    rule, a haplotype or a read in an 8-letter order that is not 4-periodic
+    breaks it, and the entry raises ValueError naming that order. The CPU
+    route of compute_flow_likelihood_matrix stays gatk_tpu's dense scan and
+    gives gatk_tpu's matrix for such an order."""
+    hap_bases, read_specs = synthetic.flow_batch(7, (60, 90), (80, 120))
+    for order in ("TGCA", "ACGT"):
+        haps = [port_flow.FlowBasedHaplotype(h, order) for h in hap_bases]
+        reads = [port_flow.FlowBasedRead(b, q, order, tp=tp) for b, q, tp in read_specs]
+        tab = port_fp.pack_flow_tables(haps, reads, "cpu")
+        ri, hi = torch.tensor([0, 0, 1, 1], dtype=torch.int32), torch.tensor([0, 1, 0, 1],
+                                                                             dtype=torch.int32)
+        assert port_fp.coset_rule_breaks(tab, ri, hi).tolist() == [0, 0]
+        assert torch.isfinite(port_fp.flow_pairhmm_pairs(tab, ri, hi)).all()
+    haps = [port_flow.FlowBasedHaplotype(hap_bases[0]), port_flow.FlowBasedHaplotype(hap_bases[1],
+                                                                                     EIGHT)]
+    reads = [port_flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
+    tab = port_fp.pack_flow_tables(haps, reads, "cpu")
+    assert port_fp.coset_rule_breaks(tab, ri, hi).tolist() == [0, 2]
+    assert port_fp.coset_rule_breaks(tab, ri[hi == 0], hi[hi == 0]).tolist() == [0, 0]
+    with pytest.raises(ValueError, match=f"flow order '{EIGHT}'.* haplotype 1 .*period 4"):
+        port_fp.flow_pairhmm_pairs(tab, ri, hi)
+    reads[1] = port_flow.FlowBasedRead(*read_specs[1][:2], EIGHT, tp=read_specs[1][2])
+    tab = port_fp.pack_flow_tables(haps[:1], reads, "cpu")
+    zero = torch.zeros(2, dtype=torch.int32)
+    assert port_fp.coset_rule_breaks(tab, torch.tensor([0, 1], dtype=torch.int32),
+                                     zero).tolist() == [2, 0]
+    with pytest.raises(ValueError, match=f"flow order '{EIGHT}'.* read 1 "):
+        port_fp.flow_pairhmm_pairs(tab, torch.tensor([0, 1], dtype=torch.int32), zero)
+    jh = [jax_flow.FlowBasedHaplotype(h, EIGHT) for h in hap_bases]
+    jr = [jax_flow.FlowBasedRead(b, q, EIGHT, tp=tp) for b, q, tp in read_specs]
+    ph = [port_flow.FlowBasedHaplotype(h, EIGHT) for h in hap_bases]
+    pr = [port_flow.FlowBasedRead(b, q, EIGHT, tp=tp) for b, q, tp in read_specs]
+    want = jax_fp.compute_flow_likelihood_matrix(jh, jr)
+    got = port_fp.compute_flow_likelihood_matrix(ph, pr, device="cpu")
+    fin = np.isfinite(want)
+    assert np.array_equal(fin, np.isfinite(got)) and fin.any()
+    assert np.abs(got[fin] - want[fin]).max() <= BATCH_TOL
 
 
 @pytest.mark.parametrize("seed,read_lens,hap_lens", [(c[0], c[1], c[2]) for c in CASES])

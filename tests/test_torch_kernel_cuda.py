@@ -486,44 +486,50 @@ def test_germline_cnv_caller_on_card_at_33_states(cuda_device, tmp_path):
 # --------------------------------------------------------------------------- flow PairHMM
 
 
-def _flow_inputs(seed, read_lens, hap_lens, device):
+def _flow_tables(seed, read_lens, hap_lens, device, edges=False, hap_order=None):
     """The flow kernel's inputs for every (read, haplotype) pair of a batch of
-    utils/synthetic.flow_batch, its prior gathered on `device`."""
+    utils/synthetic.flow_batch: the tables on `device` and ri, hi int32. With
+    `edges`, read 0 has no flows and haplotype 1 none, as the packer writes
+    such a read or haplotype (a batch of one haplotype gains a copy of it as
+    haplotype 1, which Hp and so W do not change); `hap_order` puts haplotype
+    1 in that flow order."""
     from gatk_tpu_torch.ops import flow, flow_pairhmm
     from gatk_tpu_torch.utils import synthetic
 
     hap_bases, read_specs = synthetic.flow_batch(seed, read_lens, hap_lens)
     haps = [flow.FlowBasedHaplotype(h) for h in hap_bases]
+    if hap_order:
+        haps[1] = flow.FlowBasedHaplotype(hap_bases[1], hap_order)
     reads = [flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
     tab = flow_pairhmm.pack_flow_tables(haps, reads, device)
-    idx = torch.arange(len(reads) * len(haps), device=device)
-    ri, hi = idx // len(haps), idx % len(haps)
-    return (flow_pairhmm.flow_prior(tab, ri, hi), tab["trans"][ri].contiguous(),
-            tab["rlen"][ri].contiguous(), tab["hlen"][hi].contiguous())
+    if edges:
+        if len(haps) == 1:
+            for k in ("hkey", "hlen", "hfo"):
+                tab[k] = torch.cat([tab[k], tab[k]])
+        for k, v in (("tables", 0), ("trans", 0), ("rlen", 0), ("rfo", flow_pairhmm.READ_PAD)):
+            tab[k][0] = v
+        for k, v in (("hkey", 0), ("hlen", 0), ("hfo", flow_pairhmm.HAP_PAD)):
+            tab[k][1] = v
+    nh = tab["hkey"].shape[0]
+    idx = torch.arange(len(reads) * nh, dtype=torch.int32, device=device)
+    return tab, idx // nh, idx % nh
 
 
-def _flow_edges(prior, trans, rlen, hlen):
-    """The batch with pair 0 given no read flows and pair 1 no haplotype flows,
-    as the packer writes such pairs (their priors, and the read's transitions,
-    0)."""
-    prior, trans, rlen, hlen = (t.clone() for t in (prior, trans, rlen, hlen))
-    prior[0] = 0
-    trans[0] = 0
-    rlen[0] = 0
-    prior[1] = 0
-    hlen[1] = 0
-    return prior, trans, rlen, hlen
+def _flow_dense(tab, ri, hi):
+    """gatk_tpu's dense scan in the port on the same pairs, the second oracle."""
+    from gatk_tpu_torch.ops import flow_pairhmm
+
+    return flow_pairhmm.flow_pairhmm_batch_plain(flow_pairhmm.flow_prior(tab, ri, hi),
+                                                 tab["trans"][ri], tab["rlen"][ri],
+                                                 tab["hlen"][hi])
 
 
 def _flow_close(got, want):
-    from gatk_tpu_torch.ops import flow_pairhmm
-
     torch.cuda.synchronize()
     assert got.shape == want.shape and not got.isnan().any()
     fin = torch.isfinite(want)
     assert torch.equal(fin, torch.isfinite(got)) and (got[~fin] == -np.inf).all()
     assert (got[fin] - want[fin]).abs().max().item() <= TOL
-    return flow_pairhmm
 
 
 @pytest.mark.parametrize("seed,read_lens,hap_lens,edges", [
@@ -532,20 +538,22 @@ def _flow_close(got, want):
     (2, (1, 2, 3, 5), (1, 2, 4, 9), True),  # tiny reads and haplotypes
     (3, range(20, 220, 20), (180, 240, 600, 420), True),
     (6, (50, 80, 120), (150,), True),  # W = 232, a multiple of 4 (the others: 495, 471, 26, 857)
+    (7, (60, 150), (900, 40), True),  # Hp over 507 flows: the state in shared memory
 ])
 def test_flow_kernel_matches_plain(cuda_device, seed, read_lens, hap_lens, edges):
     from gatk_tpu_torch.ops import _kernels, flow_pairhmm
 
-    args = _flow_inputs(seed, read_lens, hap_lens, cuda_device)
+    tab, ri, hi = _flow_tables(seed, read_lens, hap_lens, cuda_device, edges)
+    Rp, Hp = tab["rfo"].shape[1], tab["hkey"].shape[1]
+    assert int(tab["rlen"].max()) == Rp  # a pair with rlen = Rp
+    if seed == 7:
+        assert (Hp + 8) // 4 > 32 * 4
+    got, bad = _kernels.flow_pairhmm(tab, ri, hi)
+    _flow_close(got, flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri, hi))
+    _flow_close(got, _flow_dense(tab, ri, hi))
+    assert bad.tolist() == [0, 0]
     if edges:
-        args = _flow_edges(*args)
-    B, Rp, W = args[0].shape
-    assert int(args[2].max()) == Rp  # a pair with rlen = Rp
-    got = _kernels.flow_pairhmm(*args)
-    want = flow_pairhmm.flow_pairhmm_batch_plain(*args)
-    _flow_close(got, want)
-    if edges:
-        assert got[0].item() == -np.inf and got[1].item() == -np.inf
+        assert (got[(ri == 0) | (hi == 1)] == -np.inf).all()
 
 
 def test_flow_entry_launches_and_counts(cuda_device):
@@ -555,7 +563,7 @@ def test_flow_entry_launches_and_counts(cuda_device):
     hap_bases, read_specs = synthetic.flow_batch(4, (150, 90, 210), (260, 300))
     haps = [flow.FlowBasedHaplotype(h) for h in hap_bases]
     reads = [flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
-    entry = flow_pairhmm.flow_pairhmm_batch
+    entry = flow_pairhmm.flow_pairhmm_pairs
     launches, pairs = entry.launches, entry.pairs
     got = flow_pairhmm.compute_flow_likelihood_matrix(haps, reads, device=cuda_device)
     assert entry.launches == launches + 1 and entry.pairs == pairs + 6
@@ -572,11 +580,11 @@ def test_flow_threads_share_the_card(cuda_device):
 
     from gatk_tpu_torch.ops import _kernels, flow_pairhmm
 
-    batches = [_flow_inputs(10 + s, (60 + 20 * s, 150, 33), (200, 170 + 30 * s), cuda_device)
+    batches = [_flow_tables(10 + s, (60 + 20 * s, 150, 33), (200, 170 + 30 * s), cuda_device)
                for s in range(6)]
-    want = [flow_pairhmm.flow_pairhmm_batch_plain(*b) for b in batches]
+    want = [flow_pairhmm.flow_pairhmm_pairs_plain(*b) for b in batches]
     with ThreadPoolExecutor(6) as pool:
-        got = list(pool.map(lambda b: [_kernels.flow_pairhmm(*b) for _ in range(20)], batches))
+        got = list(pool.map(lambda b: [_kernels.flow_pairhmm(*b)[0] for _ in range(20)], batches))
     for g, w in zip(got, want):
         for x in g:
             _flow_close(x, w)
@@ -585,16 +593,38 @@ def test_flow_threads_share_the_card(cuda_device):
 def test_flow_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     from gatk_tpu_torch.ops import _kernels
 
-    prior, trans, rlen, hlen = _flow_inputs(5, (30, 40), (50,), cuda_device)
+    tab, ri, hi = _flow_tables(5, (30, 40), (50,), cuda_device)
     with pytest.raises(ValueError, match="not a CUDA device"):
-        _kernels.flow_pairhmm(prior.cpu(), trans, rlen, hlen)
+        _kernels.flow_pairhmm({k: v.cpu() for k, v in tab.items()}, ri, hi)
     with pytest.raises(ValueError, match="float32"):
-        _kernels.flow_pairhmm(prior.double(), trans, rlen, hlen)
+        _kernels.flow_pairhmm(dict(tab, tables=tab["tables"].double()), ri, hi)
     with pytest.raises(ValueError, match="int32"):
-        _kernels.flow_pairhmm(prior, trans, rlen.long(), hlen)
+        _kernels.flow_pairhmm(dict(tab, rlen=tab["rlen"].long()), ri, hi)
+    with pytest.raises(ValueError, match="int32"):
+        _kernels.flow_pairhmm(tab, ri.long(), hi)
     with pytest.raises(ValueError, match="contiguous"):
-        _kernels.flow_pairhmm(prior.transpose(1, 2).contiguous().transpose(1, 2), trans, rlen, hlen)
+        t = tab["tables"]
+        _kernels.flow_pairhmm(dict(tab, tables=t.transpose(1, 2).contiguous().transpose(1, 2)),
+                              ri, hi)
     with pytest.raises(ValueError, match="shared memory"):
-        wide = torch.zeros((1, 2, 7000), dtype=torch.float32, device=cuda_device)
-        _kernels.flow_pairhmm(wide, torch.zeros((1, 2, 6), device=cuda_device), rlen[:1],
-                              hlen[:1])
+        wide = 30000
+        _kernels.flow_pairhmm(dict(tab, hkey=torch.zeros((1, wide), dtype=torch.int32,
+                                                         device=cuda_device),
+                                   hfo=torch.zeros((1, wide), dtype=torch.uint8,
+                                                   device=cuda_device)), ri, hi * 0)
+
+
+def test_flow_entry_rejects_an_order_that_is_not_4_periodic(cuda_device):
+    """Haplotype 1 in an 8-letter flow order that does not repeat with period
+    4: the kernel flags it as coset_rule_breaks does, and the entry raises
+    ValueError naming the order; the pairs of haplotype 0 alone pass."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    tab, ri, hi = _flow_tables(8, (80, 120), (90, 110), cuda_device, hap_order="TGCATGAC")
+    _, bad = _kernels.flow_pairhmm(tab, ri, hi)
+    assert bad.tolist() == flow_pairhmm.coset_rule_breaks(tab, ri, hi).tolist() == [0, 2]
+    with pytest.raises(ValueError, match="flow order 'TGCATGAC'.* haplotype 1 "):
+        flow_pairhmm.flow_pairhmm_pairs(tab, ri, hi)
+    keep = hi == 0
+    got = flow_pairhmm.flow_pairhmm_pairs(tab, ri[keep], hi[keep])
+    _flow_close(got, flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri[keep], hi[keep]))
