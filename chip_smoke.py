@@ -57,6 +57,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
            read group's empirical quality within 1 of the planted error rate's
            (23.0), every planted SNV called, the largest launch held against
            the plain version and timed
+  distributed  the port's data-parallel paths on every card (one on the
+           card machine): graft_entry.entry() against its plain version,
+           graft_entry.dryrun_multichip over the cards and over two slices of
+           cuda:0, mesh.pairhmm_sharded on the bench workload over the cards
+           and over two slices of cuda:0, each bit for bit against a
+           one-device launch (timed), mesh.bqsr_histogram_step in a one-rank
+           NCCL group against a float64 bincount, HaplotypeCaller --shard-size
+           2000 on the hc sample in one process and in two processes on the
+           card over gloo (collective gather; file gather with round-robin
+           shards), each a subprocess under a timeout that reports its own
+           kernel counts, whose records must equal the one process's with
+           every planted SNV called and every process launching the pair
+           kernel, and ReadsPipelineSpark --device cuda --known-sites on the
+           preprocess sample (every planted SNV called; whether its records
+           equal the preprocess phase's is reported)
   flow     HaplotypeCaller --likelihood-calculation-engine FlowBasedHMM
            --flow-order TGCA --device cuda over a synthetic flow-space sample
            (utils/synthetic.write_flow_sample: 16,569 bp, 3,400 reads of 200
@@ -112,8 +127,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
            version; timed beside its bound and beside the pair kernel on the
            same product expanded into pairs
 Each of the runs hc, ramped, recaller, gvcf, flow, trio, mutect2, preprocess,
-gcnv and variants starts with every kernel's launch count at 0 and reads the counts
-at its end. hc, gvcf and mutect2 also
+distributed (its sharded calls; its two-process HaplotypeCaller runs, summed
+over the processes; its ReadsPipelineSpark run), gcnv and variants starts with
+every kernel's launch count at 0 and reads the counts at its end. hc, gvcf and mutect2 also
 profile a second run (device time of the sweep kernels, of the plan kernels
 their launchers run first, and of all device work) and report every launch's
 useful cells, bound, group-width histogram and slot use (launch_stats), and
@@ -1630,6 +1646,237 @@ def phase_preprocess(tmp):
     check(counts["pairhmm_fwd"]["launches"] > 0,
           "HaplotypeCaller on the recalibrated BAM never launched the pair kernel")
     check(not missed, f"HaplotypeCaller on the recalibrated BAM missed planted SNVs: {missed}")
+    return res, sample
+
+
+# --------------------------------------------------------------------------- distributed
+
+
+DIST_SHARD_SIZE = 2000  # HaplotypeCaller --shard-size of the one- and two-process runs
+DIST_TIMEOUT = 240  # seconds a HaplotypeCaller subprocess may take before it is killed
+HIST_KEYS = 3_171_000  # the preprocess sample's bases (21,000 reads x 151)
+HIST_BINS = 65_536
+HIST_RTOL = 1e-5  # float32 sums in any order against float64
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_processes(cmds, what):
+    """Run the commands at once on this card: (host wall s, each one's output);
+    every one must exit 0 within DIST_TIMEOUT, and all are killed when one
+    does not."""
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: a process ran past {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f"{what} exited {p.returncode}:\n{out[-4000:]}")
+    return wall, outs
+
+
+def _add_counts(a, b):
+    return {name: {k: a[name][k] + b[name][k] for k in a[name]} for name in a}
+
+
+# A tool run in a subprocess of its own, which reports its own kernel counts:
+# every count set to 0, the port's CLI on the arguments, a device
+# synchronisation, then the counts as JSON on a line that starts with COUNTS_TAG.
+COUNTS_TAG = "chip_smoke counts: "
+COUNTING_DRIVER = (
+    "import json, sys, torch, chip_smoke\n"
+    "from gatk_tpu_torch import cli\n"
+    "chip_smoke.reset_counts()\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "torch.cuda.synchronize()\n"
+    "print(chip_smoke.COUNTS_TAG + json.dumps(chip_smoke.read_counts()), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def _process_counts(out, what):
+    lines = [l for l in out.splitlines() if l.startswith(COUNTS_TAG)]
+    check(len(lines) == 1, f"{what} printed {len(lines)} count lines")
+    return json.loads(lines[0][len(COUNTS_TAG):])
+
+
+def _histogram_in_nccl_group(dev):
+    """mesh.bqsr_histogram_step inside a one-rank NCCL group, created and
+    destroyed here, against a float64 bincount on the host."""
+    import torch.distributed as dist
+    from gatk_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(2)
+    keys = rng.integers(0, HIST_BINS, HIST_KEYS).astype(np.int32)
+    errors = rng.random(HIST_KEYS).astype(np.float32)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        check(dist.get_backend() == "nccl", f"the group's backend is {dist.get_backend()}")
+        obs, errs = mesh.bqsr_histogram_step([dev], keys, errors, HIST_BINS)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mesh.bqsr_histogram_step([dev], keys, errors, HIST_BINS)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    want_obs = np.bincount(keys, minlength=HIST_BINS)
+    want_errs = np.bincount(keys, weights=errors.astype(np.float64), minlength=HIST_BINS)
+    check(obs.device == dev and np.array_equal(obs.cpu().numpy(), want_obs),
+          "the NCCL histogram's counts differ from the host's")
+    rel = float(np.max(np.abs(errs.cpu().numpy() - want_errs) / np.maximum(want_errs, 1e-30)))
+    check(rel <= HIST_RTOL, f"the NCCL histogram's errors are {rel} from the host's")
+    return dict(keys=HIST_KEYS, bins=HIST_BINS, wall_ms=float(np.median(walls)),
+                max_rel_err_errs=rel)
+
+
+def _hc_processes(sample, tmp, n, extra):
+    """HaplotypeCaller --device cuda --shard-size DIST_SHARD_SIZE on the hc
+    sample in n processes over gloo (one plain run when n is 1), each through
+    COUNTING_DRIVER: (wall s, the gathered VCF's records, each process's
+    kernel counts)."""
+    out = os.path.join(tmp, f"dist_{n}_{'_'.join(extra) or 'one'}.vcf")
+    base = [sys.executable, "-c", COUNTING_DRIVER, "HaplotypeCaller", "-I", sample["bam"],
+            "-R", sample["fasta"], "-O", out, "--shard-size", str(DIST_SHARD_SIZE),
+            "--device", "cuda"]
+    if n == 1:
+        cmds = [base]
+    else:
+        port = _free_port()
+        cmds = [base + ["--distributed-coordinator", f"127.0.0.1:{port}",
+                        "--distributed-num-processes", str(n),
+                        "--distributed-process-id", str(pid)] + extra for pid in range(n)]
+    what = f"HaplotypeCaller in {n} process(es) {' '.join(extra)}"
+    wall, outs = _run_processes(cmds, what)
+    return wall, _records(out), [_process_counts(o, what) for o in outs]
+
+
+def phase_distributed(dev, tmp, sample, pre_sample):
+    """The port's data-parallel paths on this machine's cards (one here): the
+    graft entry, the multi-device dry run over the cards and over two slices of
+    the first, the sharded pair kernel on the bench workload (the same two
+    ways), the histogram in a one-rank NCCL group, HaplotypeCaller in two
+    processes over gloo on one card (both gathers), and ReadsPipelineSpark.
+    Three paths, each counted on its own: `distributed` (this process's
+    sharded calls), `distributed_hc` (the two-process HaplotypeCaller runs,
+    each process counting its own launches) and `reads_pipeline_spark`."""
+    from gatk_tpu_torch import graft_entry
+    from gatk_tpu_torch.calling import hc_engine
+    from gatk_tpu_torch.ops import pairhmm
+    from gatk_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    reads, haps, ri, hi = _bench_workload()
+    packed, rp, hmax, n_pairs = pairhmm.pack_batch(reads, haps, ri, hi)
+    cards = mesh.make_mesh()
+    # two slices on the one card: the split, the per-slice upload and the
+    # gather's order run even where there is one card
+    halves = [dev, dev]
+
+    reset_counts()  # the launches of the driven path below only
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    entry_out = fn(*args)
+    graft_entry.dryrun_multichip(n_cards)
+    graft_entry.dryrun_multichip(2, halves)
+    sharded = mesh.pairhmm_sharded(cards, packed, rp, hmax)
+    sharded_halves = mesh.pairhmm_sharded(halves, packed, rp, hmax)
+    torch.cuda.synchronize()
+    driven_s = time.perf_counter() - t0
+    counts = read_counts()
+    argv = ["ReadsPipelineSpark", "-I", pre_sample["bam"], "-R", pre_sample["fasta"],
+            "--known-sites", pre_sample["known_sites"], "-O", os.path.join(tmp, "rps.vcf"),
+            "--device", "cuda", "--spark-master", "local[*]"]
+    rps_wall, rps_counts, _ = _run_tool(argv, counting_genotyped_pairs(hc_engine))
+
+    # the checks, after the counts are read
+    entry_err, _ = _check_close(entry_out, pairhmm.pairhmm_pairs_reference(
+        *args, hap_n_mismatch=True), "graft_entry.entry() on the card")
+    one = mesh.PAIR_ENTRY(*pairhmm.from_jax_packed(packed, device=dev))
+    for got, devs in ((sharded, cards), (sharded_halves, halves)):
+        check(got.shape == (1, n_pairs) and got.device == devs[0],
+              f"pairhmm_sharded over {devs} gave {tuple(got.shape)} on {got.device}")
+        check(torch.equal(got[0], one),
+              f"pairhmm_sharded over {devs} differs from a one-device launch of the same pairs")
+    walls = {}
+    for name, devs in (("cards", cards), ("two_slices", halves)):
+        walls[name] = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mesh.pairhmm_sharded(devs, packed, rp, hmax)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    pools, rit, hit = pairhmm.from_jax_packed(packed, device=dev)
+    timed = _timed(pools, rit, hit, plain_reps=1, hap_n_mismatch=True)
+    hist = _histogram_in_nccl_group(dev)
+
+    one_s, want, one_counts = _hc_processes(sample, tmp, 1, [])
+    runs = {}
+    hc_counts = None
+    for mode in (["--distributed-gather", "collective"],
+                 ["--distributed-gather", "files", "--distributed-shard-mode", "round-robin"]):
+        wall, got, per_process = _hc_processes(sample, tmp, 2, mode)
+        for c in per_process:
+            hc_counts = c if hc_counts is None else _add_counts(hc_counts, c)
+        runs[mode[1]] = dict(wall_s=wall, records=len(got),
+                             equal=[r["line"] for r in got] == [r["line"] for r in want],
+                             missed_snvs=_germline_gates(sample, got)[0],
+                             launches_per_process=[c["pairhmm_fwd"]["launches"]
+                                                   for c in per_process])
+    rps = _records(os.path.join(tmp, "rps.vcf"))
+    pre = _records(os.path.join(tmp, "pre", "out.vcf"))
+    rps_missed = _germline_gates(pre_sample, rps)[0]
+    res = dict(phase="distributed", seconds=time.perf_counter() - t_phase, cards=n_cards,
+               driven_s=driven_s,
+               entry_max_abs_err=entry_err, sharded_pairs=n_pairs,
+               sharded_wall_ms=float(np.median(walls["cards"])),
+               sharded_two_slices_wall_ms=float(np.median(walls["two_slices"])),
+               one_device=timed,
+               histogram_nccl=hist, hc_one_process_s=one_s, hc_records=len(want),
+               hc_one_process_launches=one_counts[0]["pairhmm_fwd"]["launches"],
+               hc_missed_snvs=_germline_gates(sample, want)[0], hc_two_process=runs,
+               reads_pipeline_spark_s=rps_wall, reads_pipeline_records=len(rps),
+               reads_pipeline_missed_snvs=rps_missed,
+               reads_pipeline_equals_preprocess=[r["line"] for r in rps] == [
+                   r["line"] for r in pre],
+               launches=counts["pairhmm_fwd"]["launches"]
+               + counts["pairhmm_fwd_hap_n_mismatch"]["launches"], counts=counts,
+               hc_counts=hc_counts, rps_counts=rps_counts)
+    emit(res)
+    check(counts["pairhmm_fwd_hap_n_mismatch"]["launches"] > 0,
+          "the sharded path never launched the pair kernel")
+    check(counts["pairhmm_fwd"]["launches"] > 0,
+          "the dry runs' sharded calling never launched the pair kernel")
+    check(rps_counts["pairhmm_fwd"]["launches"] > 0,
+          "ReadsPipelineSpark never launched the pair kernel")
+    check(not res["hc_missed_snvs"], f"one-process HaplotypeCaller missed {res['hc_missed_snvs']}")
+    for name, r in runs.items():
+        check(r["equal"], f"2-process HaplotypeCaller ({name} gather) differs from one process")
+        check(not r["missed_snvs"], f"2-process HaplotypeCaller ({name}) missed {r['missed_snvs']}")
+        check(all(n > 0 for n in r["launches_per_process"]),
+              f"a process of the 2-process HaplotypeCaller ({name}) never launched the pair "
+              f"kernel: {r['launches_per_process']}")
+    check(not rps_missed, f"ReadsPipelineSpark missed planted SNVs: {rps_missed}")
     return res
 
 
@@ -2108,7 +2355,8 @@ def main():
         flow = phase_flow(tmp)
         trio = phase_trio(tmp)
         m2 = phase_mutect2(tmp)
-        pre = phase_preprocess(tmp)
+        pre, pre_sample = phase_preprocess(tmp)
+        dist = phase_distributed(dev, tmp, sample, pre_sample)
         phase_vqsr(dev, tmp)
         gcnv, gcnv_model = phase_gcnv(dev, tmp, sample)
         hmm = phase_cnv_hmm(dev, gcnv_model)
@@ -2122,12 +2370,16 @@ def main():
     # the largest launch of the path it serves. No single PyTorch call computes
     # the PairHMM, the flow PairHMM or the HMM's forward-backward pass, so there
     # is no library time.
+    path_counts = [(path, r["counts"]) for path, r in (
+        ("hc", hc), ("gvcf", gvcf), ("mutect2", m2), ("variants", var), ("gcnv", gcnv),
+        ("ramped", ramped), ("recaller", recaller), ("trio", trio), ("preprocess", pre),
+        ("flow", flow), ("distributed", dist))]
+    path_counts += [("distributed_hc", dist["hc_counts"]),
+                    ("reads_pipeline_spark", dist["rps_counts"])]
+
     def by_path(name):
-        return {path: r["counts"][name]["launches"]
-                for path, r in (("hc", hc), ("gvcf", gvcf), ("mutect2", m2), ("variants", var),
-                                ("gcnv", gcnv), ("ramped", ramped), ("recaller", recaller),
-                                ("trio", trio), ("preprocess", pre), ("flow", flow))
-                if name in r["counts"]}
+        return {path: counts[name]["launches"] for path, counts in path_counts
+                if name in counts}
 
     fwd_err = max(k["max_abs_err_bench"], k["max_abs_err_ragged"], main_launch["max_abs_err"],
                   *(r["largest_launch"]["max_abs_err"] for r in (m2, ramped, pre)),

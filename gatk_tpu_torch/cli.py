@@ -1,8 +1,8 @@
 """CLI front-end of the port: python -m gatk_tpu_torch ToolName --args...
 
 Tool names and flags mirror gatk_tpu's (and GATK4's); the registry holds the
-tools ported so far (HaplotypeCaller; Mutect2 with its filtering and
-contamination tools; the germline and somatic CNV tools).
+tools ported so far and, last, the Spark-named aliases of tools/spark_compat.py
+(TOOL_ALIASES maps each to its single-node tool).
 """
 from __future__ import annotations
 
@@ -13,13 +13,16 @@ import time
 from .utils.errors import UserError
 
 TOOL_REGISTRY = {}
+TOOL_ALIASES = {}  # alias name -> target tool name (the Spark-named tools)
 
 VERSION = "0.1.0-torch"
 
 
-def register_tool(name):
+def register_tool(name, alias_of=None):
     def deco(fn):
         TOOL_REGISTRY[name] = fn
+        if alias_of:
+            TOOL_ALIASES[name] = alias_of
         return fn
 
     return deco
@@ -84,6 +87,8 @@ def _register_builtin_tools():
     from .tools import gvcf_tools, bqsr_tools, metrics_tools  # noqa: F401
     from .tools import ramped_hc_tool, variant_recalling_tool  # noqa: F401
     from .tools import vqsr_tools, groundtruth_tools, featuremapping_tools  # noqa: F401
+    from .tools import variant_tools, basic_tools, analysis_tools  # noqa: F401
+    from .tools import spark_compat  # noqa: F401  (last: it aliases registered tools)
 
 
 _register_builtin_tools()

@@ -1,8 +1,10 @@
 """HaplotypeCaller tool (tools/walkers/haplotypecaller/HaplotypeCaller.java CLI
 equivalent). Port of gatk_tpu/tools/hc_tool.py: the same flags and output, plus
 --device {cuda,cpu}, which holds for both likelihood engines (the PairHMM and
-FlowBasedHMM's flow-space PairHMM); the multi-process --distributed-* flags are
-not ported yet and raise UserError."""
+FlowBasedHMM's flow-space PairHMM). With --distributed-coordinator and
+--distributed-num-processes N > 1, N processes each call their shard of the
+targets on their local devices (every CUDA device, or the host with --device
+cpu) and process 0 gathers the shards (parallel/multihost.py)."""
 from __future__ import annotations
 
 import os
@@ -10,7 +12,7 @@ import os
 import torch
 
 from ..calling import hc_engine
-from ..cli import UserError, register_tool, standard_io_parser
+from ..cli import register_tool, standard_io_parser
 from ..engine import intervals as iv
 from ..io import fasta, vcf
 from .. import devices
@@ -33,11 +35,6 @@ VCF_HEADER_LINES = [
 @register_tool("HaplotypeCaller")
 def haplotype_caller(argv):
     """Call germline SNPs and indels via local re-assembly of haplotypes."""
-    distributed = sorted({a.split("=")[0] for a in argv if a.startswith("--distributed-")})
-    if distributed:
-        raise UserError(
-            f"{', '.join(distributed)}: multi-process calling is not ported to the GPU "
-            "package yet (ROADMAP.md open item 7, multi-GPU and multihost)")
     p = standard_io_parser("HaplotypeCaller")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the PairHMM runs: the CUDA kernel on every local GPU, "
@@ -114,16 +111,45 @@ def haplotype_caller(argv):
                    dest="dragen_mode", action="store_true",
                    help="enable the DRAGEN-GATK feature bundle incl. pileup "
                         "detection + PDHMM (getDragenVersion378NameValuePairs)")
+    p.add_argument("--distributed-coordinator", default=None,
+                   help="host:port of process 0 (enables multi-process mode)")
+    p.add_argument("--distributed-num-processes", type=int, default=1)
+    p.add_argument("--distributed-process-id", type=int, default=0)
+    p.add_argument("--distributed-gather", default="collective",
+                   choices=["collective", "files"],
+                   help="shard gather transport: 'collective' all-gathers the shard "
+                        "bytes over the torch.distributed group (no shared "
+                        "filesystem needed); 'files' concatenates "
+                        "<out>.shard-* on a common mount")
+    p.add_argument("--distributed-shard-mode", default="contiguous",
+                   choices=["contiguous", "round-robin"],
+                   help="fine-shard assignment across processes: contiguous "
+                        "bp-balanced runs, or round-robin interleave "
+                        "(SparkSharder-style load balancing for work hotspots)")
     args = p.parse_args(argv)
 
     # the device choice holds for every PairHMM caller, including the -ERC GVCF
     # route, which passes no device (hc_engine.compute_pairhmm_likelihoods)
     devices.set_default_device(args.device)
+    # None: every local CUDA device (ShardedCaller), in each process of a
+    # distributed run too
     shard_devices = [torch.device("cpu")] if args.device == "cpu" else None
+
+    distributed = args.distributed_coordinator and args.distributed_num_processes > 1
+    join_init = None
+    if distributed:
+        from ..parallel import multihost
+        # overlap the rendezvous with the opening of the reference and the
+        # BAM below; joined (and its failure raised) before any collective
+        join_init = multihost.start_initialize(
+            args.distributed_coordinator, args.distributed_num_processes,
+            args.distributed_process_id)
 
     ref = fasta.FastaReference(args.reference)
     from ..io.cram import open_reads
     readers = [open_reads(path, reference=ref) for path in args.input]
+    if join_init is not None:
+        join_init()
     header = readers[0].header
     sample = header.read_groups[0].get("SM", "SAMPLE") if header.read_groups else "SAMPLE"
 
@@ -137,6 +163,11 @@ def haplotype_caller(argv):
         targets = [iv.Interval(t.contig, s, min(s + args.shard_size, t.end))
                    for t in targets for s in range(t.start, t.end, args.shard_size)]
     out_path = args.output
+    if distributed:
+        targets = multihost.shard_targets(
+            targets, args.distributed_num_processes, args.distributed_process_id,
+            mode=args.distributed_shard_mode)
+        out_path = multihost.shard_vcf_path(args.output, args.distributed_process_id)
 
     hc_args = hc_engine.HCArgs(
         min_base_quality_score=args.min_base_quality_score,
@@ -217,7 +248,8 @@ def haplotype_caller(argv):
     n = 0
     for target in targets:
         # per-target RNG reset: makes each target's output independent of which
-        # shard computed it (exact resume equality)
+        # process/shard computed it (exact N-process == 1-process == resume
+        # equality)
         reset_random_generator()
         if ckpt is not None and ckpt.is_done(target):
             for line in ckpt.load_lines(target):
@@ -247,6 +279,19 @@ def haplotype_caller(argv):
     if engine.bamout is not None:
         engine.bamout.write(args.bamout, header)
         print(f"wrote bamout with {len(engine.bamout.records)} records to {args.bamout}")
+    if distributed:
+        sort = args.distributed_shard_mode == "round-robin"
+        if args.distributed_gather == "collective":
+            # shared-filesystem-free: the shard bytes ride the process group
+            multihost.gather_vcf_shards_collective(args.output, out_path, sort=sort)
+        else:
+            multihost.barrier("hc-gather")
+            if args.distributed_process_id == 0:
+                multihost.gather_vcf_shards(args.output, args.distributed_num_processes,
+                                            sort=sort)
+        multihost.shutdown()
+        if args.distributed_process_id == 0:
+            print(f"gathered {args.distributed_num_processes} shards into {args.output}")
     print(f"wrote {n} variants to {out_path}")
     if os.environ.get("GATK_TPU_STAGE_TIMES"):
         print(f"stage times: {STAGES.report()}")

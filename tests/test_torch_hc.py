@@ -23,7 +23,6 @@ from gatk_tpu_torch.io import reads as port_reads
 from gatk_tpu_torch.io import vcf as port_vcf
 from gatk_tpu_torch.parallel import scheduler as port_scheduler
 from gatk_tpu_torch.utils import synthetic
-from gatk_tpu_torch.utils.errors import UserError
 from tests.test_torch_pairhmm import one_torch_thread  # noqa: F401
 
 
@@ -116,14 +115,3 @@ def test_cli_gvcf_identical_to_jax(sample, tmp_path):
     assert any("<NON_REF>" in ln and ln.split("\t")[4] != "<NON_REF>" for ln in body)
     assert any("END=" in ln for ln in body)
 
-
-@pytest.mark.parametrize("flags", [
-    ["--distributed-coordinator", "localhost:1234", "--distributed-num-processes", "2"],
-])
-def test_unported_options_raise_user_error(sample, tmp_path, flags):
-    argv = ["-I", sample["bam"], "-R", sample["fasta"], "-O", str(tmp_path / "x.vcf"),
-            "--device", "cpu", *flags]
-    with pytest.raises(UserError, match="ROADMAP"):
-        port_cli.TOOL_REGISTRY["HaplotypeCaller"](argv)
-    assert port_cli.main(["HaplotypeCaller", *argv]) == 2
-    assert not (tmp_path / "x.vcf").exists()

@@ -57,7 +57,7 @@ def test_port_imports_neither_jax_nor_gatk_tpu():
 
 
 def test_every_module_named_in_a_header_is_copied():
-    assert len(_copied_files()) == 90
+    assert len(_copied_files()) == 95
 
 
 def _is_import(node):
@@ -73,9 +73,14 @@ def _import_lines(src):
 
 
 # the lines a copy may change beyond its imports: the PairHMM module's name at
-# its uses, and the --device flags
+# its uses, the --device flags, and the lines EDITED lists
 RENAMED = {"calling/hc_engine.py": (18, 332, 407, 518, 549),
            "mutect/engine.py": (23, 158, 197, 232)}
+# copy -> {line of the original: (its text, its text in the copy)}: ReadsPipeline
+# hands its --device flag on to HaplotypeCaller, which would default to cuda
+EDITED = {"tools/analysis_tools.py": {540: (
+    '                   "-ERC", args.emit_ref_confidence,\n',
+    '                   "-ERC", args.emit_ref_confidence, "--device", args.device,\n')}}
 # the PairHMM's flag: Mutect2, RampedHaplotypeCaller, HaplotypeBasedVariantRecaller
 MUTECT2_DEVICE_FLAG = [
     '    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",\n',
@@ -104,6 +109,7 @@ DEVICE_FLAGS = {
     "tools/somatic_cnv_tools.py": [(326, PON_DEVICE_FLAG), (452, MODEL_SEGMENTS_DEVICE_FLAG)],
     "tools/ramped_hc_tool.py": [(86, MUTECT2_DEVICE_FLAG)],
     "tools/variant_recalling_tool.py": [(54, MUTECT2_DEVICE_FLAG)],
+    "tools/analysis_tools.py": [(521, MUTECT2_DEVICE_FLAG)],  # ReadsPipeline
 }
 
 # copy -> (n, the start of the original's line n + 1): where a tool with a
@@ -112,7 +118,8 @@ DEVICES_IMPORT = {"tools/mutect_tool.py": (9, "\n"),
                   "tools/cnv_tools.py": (9, "from ..cli import"),
                   "tools/somatic_cnv_tools.py": (15, "from ..cli import"),
                   "tools/ramped_hc_tool.py": (32, "\n"),
-                  "tools/variant_recalling_tool.py": (20, "\n")}
+                  "tools/variant_recalling_tool.py": (20, "\n"),
+                  "tools/analysis_tools.py": (17, "from ..cli import")}
 
 
 def _expected_changes(copy, original):
@@ -122,6 +129,9 @@ def _expected_changes(copy, original):
     for n in RENAMED.get(rel, ()):
         assert "pairhmm_tpu" in lines[n - 1]
         lines[n - 1] = lines[n - 1].replace("pairhmm_tpu", "pairhmm")
+    for n, (old, new) in EDITED.get(rel, {}).items():
+        assert lines[n - 1] == old
+        lines[n - 1] = new
     for n, flag in sorted(DEVICE_FLAGS.get(rel, ()), reverse=True):
         assert lines[n - 1] == "    args = p.parse_args(argv)\n"
         lines[n:n] = ["    devices.set_default_device(args.device)\n"]
