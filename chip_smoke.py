@@ -93,6 +93,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
            --truth-vcf (40 epochs on the card; AUC of the scores against the
            planted labels >= 0.9) and FilterVariantTranches; the GATK_CNN_1D
            forward and a training step timed on the card, with launches a step
+  postcall FlowPairHMMAlignReadsToHaplotypes --device cuda on every read of the
+           flow sample (3,400 reads of 200 bases) against the reference and
+           planted windows (300-400 bp) of its first 4 variants: one launch of
+           the coset kernel over 27,200 pairs, within 1e-4 of its plain
+           version on the card (equal -inf sets), the TSV equal to the kernel's
+           values at 4 decimals, timed beside its bound; the same tool with
+           --flow-order TGCATGAC (not 4-periodic) on the reads of chrM:1-2000
+           (PrintReads -L): one launch of the dense kernel over every pair,
+           within 1e-4 of gatk_tpu's dense scan on the card
+           (flow_pairhmm_dense_plain), timed beside its plain version and its
+           bound. Then the post-calling chain on the vqsr phase's callset:
+           SelectVariants --select-type-to-include SNP (exactly the SNVs) and
+           -select "QD > 2.0" (exactly the records whose INFO QD is above 2);
+           VariantFiltration with GATK's six SNP hard filters (FILTER names
+           exactly the filters the phase computes from INFO); VariantEval
+           --comp truth.vcf (CountVariants' nSNPs, nInsertions and nDeletions
+           and CompOverlap's nVariantsAtComp equal the phase's counts of the
+           PASS records); Funcotator VCF and MAF against a synthetic GENCODE
+           datasource of 1,000 genes (utils/synthetic.write_gencode_datasource;
+           every site outside the genes IGR, or FIVE_PRIME_FLANK within 5 kb
+           before one, every SNV inside a CDS SILENT, MISSENSE or NONSENSE by
+           the phase's own translation with the standard code, outside the
+           first and last codons and 2 bases from an exon end), then
+           FilterFuncotations; each tool's host seconds and record counts
   main_launch  the largest pair-kernel launch of the hc run, held against the
            plain version and timed at that shape
   gcnv     the germline CNV tools through the port's CLI on a GermlineCNVCaller
@@ -128,7 +152,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
            same product expanded into pairs
 Each of the runs hc, ramped, recaller, gvcf, flow, trio, mutect2, preprocess,
 distributed (its sharded calls; its two-process HaplotypeCaller runs, summed
-over the processes; its ReadsPipelineSpark run), gcnv and variants starts with
+over the processes; its ReadsPipelineSpark run), postcall (its two
+FlowPairHMMAlignReadsToHaplotypes runs, summed), gcnv and variants starts with
 every kernel's launch count at 0 and reads the counts at its end. hc, gvcf and mutect2 also
 profile a second run (device time of the sweep kernels, of the plan kernels
 their launchers run first, and of all device work) and report every launch's
@@ -209,7 +234,8 @@ def _entries():
             "pairhmm_fwd_hap_n_mismatch": pairhmm.pairhmm_pairs_hap_n_mismatch,
             "pairhmm_matrix": pairhmm.pairhmm_matrix,
             "cnv_hmm": cnv_hmm.hmm_forward_backward,
-            "flow_pairhmm": flow_pairhmm.flow_pairhmm_pairs}
+            "flow_pairhmm": flow_pairhmm.flow_pairhmm_pairs,
+            "flow_pairhmm_dense": flow_pairhmm.flow_pairhmm_pairs.dense}
 
 
 def reset_counts():
@@ -224,8 +250,9 @@ def read_counts():
 
 
 def _pairs(counts):
-    """Pairs scored, summed over the PairHMM entries (the flow PairHMM's too)."""
-    return sum(c.get("pairs", 0) for c in counts.values())
+    """Pairs scored, summed over the PairHMM entries (the flow PairHMM's too;
+    its dense kernel scores again pairs the coset kernel's launch held)."""
+    return sum(c.get("pairs", 0) for name, c in counts.items() if name != "flow_pairhmm_dense")
 
 
 # --------------------------------------------------------------------------- device
@@ -925,6 +952,10 @@ FLOW = dict(seed=0)  # utils/synthetic.write_flow_sample at its defaults: 16,569
 # (csrc/flow_pairhmm.cu): M 5, I 3, D 3 (m * MD, dd * d, the sum), and the 2
 # comparisons of the row maximum of M and I
 FLOW_FLOPS_PER_CELL = 13
+# FP32 operations per dense cell of the dense kernel's function
+# (csrc/flow_pairhmm_dense.cu, gatk_tpu's dense scan): M 5, I 3, D 3, and the
+# 3 comparisons of the row maximum of M, I and D
+FLOW_DENSE_FLOPS_PER_CELL = 14
 # The largest launch of the earlier dense flow kernel (a block a pair on a
 # gathered (B, Rp, W) prior, which took a region's pairs in parts of whole
 # pairs) on this sample: the first 1,948 pairs of the region whose launch has
@@ -990,16 +1021,45 @@ def _flow_bound(tab, ri, hi):
     from gatk_tpu_torch.ops import flow_pairhmm
 
     F = flow_pairhmm.FLOW_SIZE
+    rows, in_bytes = _flow_rows_and_bytes(tab, ri, hi)
+    cells = int((rows * ((tab["hlen"].long()[hi.long()] + 2 * F) // F)).sum().item())
+    return dict(_bound(cells, in_bytes, 4 * ri.numel(), FLOW_FLOPS_PER_CELL),
+                rows=int(rows.max().item()))
+
+
+def _flow_rows_and_bytes(tab, ri, hi):
+    """The rows each pair needs (to clip(rlen - 1, 0, Rp - 1)), and the input
+    bytes the pairs need, each read once: of each of their reads its rows of
+    the table and the transitions and its flow bases, of each haplotype its
+    keys and flow bases, the lengths and the pair list."""
+    from gatk_tpu_torch.ops import flow_pairhmm
+
     Rp, T1 = tab["tables"].shape[1:]
     rows = flow_pairhmm.final_rows(tab["rlen"], Rp) + 1
     hlen = tab["hlen"].long()
     ri, hi = ri.long(), hi.long()
-    cells = int((rows[ri] * ((hlen[hi] + 2 * F) // F)).sum().item())
     reads, haps = torch.unique(ri), torch.unique(hi)
     in_bytes = (int(rows[reads].sum().item()) * (4 * T1 + 4 * 6 + 1) + 4 * reads.numel()
                 + int(hlen[haps].sum().item()) * (4 + 1) + 4 * haps.numel() + 8 * ri.numel())
-    return dict(_bound(cells, in_bytes, 4 * ri.numel(), FLOW_FLOPS_PER_CELL),
-                rows=int(rows[ri].max().item()))
+    return rows[ri], in_bytes
+
+
+def _flow_dense_bound(tab, ri, hi):
+    """The dense kernel's bound on these pairs: of each row a pair needs, the
+    4 ceil((hlen + 5) / 4) columns its result depends on (past them the prior
+    is 0 and M = I = 0; D's tail there enters only the row's scale, which the
+    result does not depend on but for rounding), FLOW_DENSE_FLOPS_PER_CELL
+    operations a cell; the bytes of _flow_rows_and_bytes; the output written
+    once. Also the cells the kernel walks, every one of the Wp columns of the
+    tables' width a row."""
+    from gatk_tpu_torch.ops import flow_pairhmm
+
+    F = flow_pairhmm.FLOW_SIZE
+    Wp = -(-(tab["hkey"].shape[1] + 1 + F) // F) * F
+    rows, in_bytes = _flow_rows_and_bytes(tab, ri, hi)
+    cells = int((rows * F * ((tab["hlen"].long()[hi.long()] + 2 * F) // F)).sum().item())
+    return dict(_bound(cells, in_bytes, 4 * ri.numel(), FLOW_DENSE_FLOPS_PER_CELL),
+                rows=int(rows.max().item()), Wp=Wp, walked_cells=int(rows.sum().item()) * Wp)
 
 
 def _flow_err(got, want, what):
@@ -1098,7 +1158,7 @@ def phase_flow(tmp):
     check(not missed_snv, f"flow: planted SNVs not called as 0/1: {missed_snv}")
     check(len(indel_called) >= len(indels) - 1,
           f"flow: only {len(indel_called)} of {len(indels)} planted indels called")
-    return res
+    return res, sample
 
 
 # --------------------------------------------------------------------------- vqsr
@@ -1264,6 +1324,304 @@ def phase_vqsr(dev, tmp):
     check(nv_err <= NV_TOL, f"NVScoreVariants: CNN_1D on the card {nv_err} from the host's")
     check(auc >= AUC_MIN, f"NVScoreVariants --truth-vcf: AUC {auc} < {AUC_MIN}")
     check(0 < n_filtered < len(cs["sites"]), f"FilterVariantTranches filtered {n_filtered}")
+    return res, cs
+
+
+# --------------------------------------------------------------------------- postcall
+
+POSTCALL_HAPLOTYPES = 4  # planted variants whose reference and planted windows are the haplotypes
+OFF_RULE_ORDER = "TGCATGAC"  # a flow order that does not repeat with period 4
+OFF_RULE_WINDOW = "chrM:1-2000"
+# GATK's documented hard filters for SNVs (expression, name, INFO key, fails when)
+SNP_HARD_FILTERS = (("QD < 2.0", "QD2", "QD", lambda x: x < 2.0),
+                    ("FS > 60.0", "FS60", "FS", lambda x: x > 60.0),
+                    ("MQ < 40.0", "MQ40", "MQ", lambda x: x < 40.0),
+                    ("SOR > 3.0", "SOR3", "SOR", lambda x: x > 3.0),
+                    ("MQRankSum < -12.5", "MQRankSum-12.5", "MQRankSum", lambda x: x < -12.5),
+                    ("ReadPosRankSum < -8.0", "ReadPosRankSum-8", "ReadPosRankSum",
+                     lambda x: x < -8.0))
+GENCODE_GENES = 1000  # synthetic.write_gencode_datasource's genes over the callset's 20 Mb
+FLANK_5P = 5000  # funcotator/gencode.py:199: bases before a gene whose sites are its 5' flank
+SPLICE_SITE_WINDOW = 2  # funcotator/gencode.py:197
+_BASES = "TCAG"
+_AMINO = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+STANDARD_CODE = {a + b + c: _AMINO[16 * i + 4 * j + k] for i, a in enumerate(_BASES)
+                 for j, b in enumerate(_BASES) for k, c in enumerate(_BASES)}
+_COMPLEMENT = str.maketrans("ACGT", "TGCA")
+
+
+def _tsv_matrix(path):
+    """(header, read names, [printed cells of each read]) of the tool's TSV."""
+    with open(path) as fh:
+        rows = [ln.rstrip("\n").split("\t") for ln in fh]
+    return rows[0], [r[0] for r in rows[1:]], [r[1:] for r in rows[1:]]
+
+
+def _printed(got, n_haps):
+    """The kernel's (B,) values as the tool prints them, read-major."""
+    vals = got.cpu().numpy().astype(np.float64).reshape(-1, n_haps)
+    return [[f"{x:.4f}" for x in row] for row in vals]
+
+
+def _postcall_flow(tmp, sample):
+    """FlowPairHMMAlignReadsToHaplotypes --device cuda on every read of the flow
+    sample against the reference and planted windows of its first
+    POSTCALL_HAPLOTYPES variants (one launch of the coset kernel); then with
+    the flow order OFF_RULE_ORDER on the reads of OFF_RULE_WINDOW (the dense
+    kernel). Each launch held against its plain version on the card, the TSV
+    against the kernel's values as the tool prints them, and timed."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "postcall_flow")
+    os.makedirs(d, exist_ok=True)
+    haps = os.path.join(d, "haplotypes.fa")
+    names = synthetic.write_flow_haplotypes(haps, sample["fasta"], sample["contig"],
+                                            sample["variants"], n_variants=POSTCALL_HAPLOTYPES,
+                                            seed=0)
+    out = {}
+    tsv = os.path.join(d, "matrix.tsv")
+    kept = {}
+    with keeping_outputs(_kernels, "flow_pairhmm", kept):
+        wall, counts, _ = _run_tool(["FlowPairHMMAlignReadsToHaplotypes", "-I", sample["bam"],
+                                     "-H", haps, "-O", tsv, "--device", "cuda"])
+    check(counts["flow_pairhmm"]["launches"] == 1 and counts["flow_pairhmm_dense"]["launches"] == 0,
+          f"FlowPairHMMAlignReadsToHaplotypes: launches {counts}, not one of the coset kernel")
+    check(len(kept["flow_pairhmm"]) == 1, "the coset kernel's launch was not kept")
+    (tab, ri, hi), _ = kept["flow_pairhmm"][0]
+    header, reads, cells = _tsv_matrix(tsv)
+    check(header[1:] == names and len(reads) == sample["n_reads"],
+          f"FlowPairHMMAlignReadsToHaplotypes wrote {len(reads)} reads x {header[1:]}")
+    check(ri.numel() == len(reads) * len(names), f"the launch held {ri.numel()} pairs")
+    got, bad = _kernels.flow_pairhmm(tab, ri, hi)
+    want = flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri, hi)
+    torch.cuda.synchronize()
+    check(bad.tolist() == [0, 0], f"the coset kernel flagged flow orders {bad.tolist()}")
+    err = _flow_err(got, want, "FlowPairHMMAlignReadsToHaplotypes' launch")
+    check(cells == _printed(got, len(names)),
+          "FlowPairHMMAlignReadsToHaplotypes' TSV is not the kernel's matrix at 4 decimals")
+    kernel_ms = median_ms(lambda: _kernels.flow_pairhmm(tab, ri, hi), reps=30, warmup=3)
+    plain_ms = median_ms(lambda: flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri, hi), reps=1,
+                         warmup=0)
+    bound = _flow_bound(tab, ri, hi)
+    NR, Rp, T1 = tab["tables"].shape
+    out["coset"] = dict(tool_s=wall, counts=counts, pairs=ri.numel(), reads=NR,
+                        haplotypes=len(names), Rp=Rp, Hp=tab["hkey"].shape[1], T1=T1,
+                        finite=int(torch.isfinite(want).sum()), max_abs_err=err,
+                        kernel_ms=kernel_ms, plain_ms=plain_ms,
+                        us_per_row=kernel_ms * 1e3 / bound["rows"], **bound)
+    del tab, ri, hi, got, want
+
+    window = os.path.join(d, "window.bam")
+    print_reads_s, _, _ = _run_tool(["PrintReads", "-I", sample["bam"], "-O", window,
+                                     "-L", OFF_RULE_WINDOW])
+    tsv2 = os.path.join(d, "matrix_off_rule.tsv")
+    kept = {}
+    with keeping_outputs(_kernels, "flow_pairhmm_dense", kept):
+        wall2, counts2, _ = _run_tool(["FlowPairHMMAlignReadsToHaplotypes", "-I", window,
+                                       "-H", haps, "-O", tsv2, "--device", "cuda",
+                                       "--flow-order", OFF_RULE_ORDER])
+    dense = counts2["flow_pairhmm_dense"]
+    check(dense["launches"] == 1 and counts2["flow_pairhmm"]["launches"] == 1,
+          f"--flow-order {OFF_RULE_ORDER}: launches {counts2}, not one of each flow kernel")
+    (tab, ri, hi), _ = kept["flow_pairhmm_dense"][0]
+    header, reads, cells = _tsv_matrix(tsv2)
+    check(dense["pairs"] == ri.numel() == len(reads) * len(names) > 0,
+          f"--flow-order {OFF_RULE_ORDER}: the dense kernel scored {dense['pairs']} of "
+          f"{len(reads)} reads x {len(names)} haplotypes")
+    got = _kernels.flow_pairhmm_dense(tab, ri, hi)
+    want = flow_pairhmm.flow_pairhmm_dense_plain(tab, ri, hi)
+    torch.cuda.synchronize()
+    err2 = _flow_err(got, want, f"the dense kernel (--flow-order {OFF_RULE_ORDER})")
+    check(cells == _printed(got, len(names)),
+          f"--flow-order {OFF_RULE_ORDER}: the TSV is not the dense kernel's matrix at 4 decimals")
+    kernel_ms = median_ms(lambda: _kernels.flow_pairhmm_dense(tab, ri, hi), reps=30, warmup=3)
+    plain_ms = median_ms(lambda: flow_pairhmm.flow_pairhmm_dense_plain(tab, ri, hi), reps=1,
+                         warmup=0)
+    bound = _flow_dense_bound(tab, ri, hi)
+    NR, Rp, T1 = tab["tables"].shape
+    out["dense"] = dict(tool_s=wall2, print_reads_s=print_reads_s, counts=counts2,
+                        pairs=ri.numel(), reads=NR, haplotypes=len(names), Rp=Rp,
+                        Hp=tab["hkey"].shape[1], T1=T1,
+                        finite=int(torch.isfinite(want).sum()), max_abs_err=err2,
+                        kernel_ms=kernel_ms, plain_ms=plain_ms,
+                        us_per_row=kernel_ms * 1e3 / bound["rows"], **bound)
+    return out
+
+
+def _vcf_sites(path):
+    """(pos 1-based, REF, ALT, FILTER, INFO dict, the line) of each record."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                f = line.rstrip("\n").split("\t")
+                info = dict(kv.split("=", 1) for kv in f[7].split(";") if "=" in kv)
+                out.append((int(f[1]), f[3], f[4], f[6], info, line))
+    return out
+
+
+def _expected_filters(info):
+    return {name for _, name, key, fails in SNP_HARD_FILTERS if fails(float(info[key]))}
+
+
+def _eval_table(path, table):
+    """The 'all' row of a GATKReport table of VariantEval's output: {column: value}."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith(f"#:GATKTable:{table}:"))
+    cols = lines[start + 1].split()
+    for ln in lines[start + 2:]:
+        vals = ln.split()
+        if not vals:
+            break
+        row = dict(zip(cols, vals))
+        if row.get("Novelty") == "all":
+            return row
+    fail(f"VariantEval: no 'all' row in {table}")
+
+
+def _codon_class(ref_seq, gene, pos1, alt):
+    """The phase's own class of an SNV at pos1 inside gene's CDS: SILENT,
+    MISSENSE or NONSENSE by the standard code on its codon, or None where
+    Funcotator's rules set it otherwise (the first or last codon, within
+    SPLICE_SITE_WINDOW of an exon end)."""
+    if any(abs(pos1 - b) < SPLICE_SITE_WINDOW for e in gene["exons"] for b in e):
+        return None
+    cds = "".join(ref_seq[a - 1:b] for a, b in gene["cds"])
+    offsets = [pos1 - a + sum(b0 - a0 + 1 for a0, b0 in gene["cds"][:k])
+               for k, (a, b) in enumerate(gene["cds"]) if a <= pos1 <= b]
+    if not offsets:
+        return None
+    i = offsets[0]
+    mutated = cds[:i] + alt + cds[i + 1:]
+    if gene["strand"] == "-":
+        cds, mutated = (x.translate(_COMPLEMENT)[::-1] for x in (cds, mutated))
+        i = len(cds) - 1 - i
+    c = i // 3
+    if c == 0 or c == len(cds) // 3 - 1:
+        return None
+    ref_aa, alt_aa = STANDARD_CODE[cds[3 * c:3 * c + 3]], STANDARD_CODE[mutated[3 * c:3 * c + 3]]
+    check(ref_aa != "*", f"{gene['gene']}: a stop codon inside the CDS at {pos1}")
+    return "SILENT" if ref_aa == alt_aa else "NONSENSE" if alt_aa == "*" else "MISSENSE"
+
+
+def _postcall_chain(tmp, cs):
+    """SelectVariants, VariantFiltration (GATK's SNP hard filters), VariantEval
+    and Funcotator (VCF and MAF, then FilterFuncotations) on the vqsr phase's
+    callset, each held to the phase's own reading of the records."""
+    from gatk_tpu_torch.io.fasta import FastaReference
+    from gatk_tpu_torch.utils import synthetic
+
+    d = os.path.join(tmp, "postcall")
+    os.makedirs(d, exist_ok=True)
+    sites = _vcf_sites(cs["vcf"])
+    tool_s, records = {}, {}
+
+    snp_vcf = os.path.join(d, "snp.vcf")
+    tool_s["SelectVariants SNP"], _, _ = _run_tool(
+        ["SelectVariants", "-V", cs["vcf"], "-O", snp_vcf, "--select-type-to-include", "SNP"])
+    got = [s[:3] for s in _vcf_sites(snp_vcf)]
+    want = [s[:3] for s in sites if len(s[1]) == len(s[2]) == 1]
+    records["SelectVariants SNP"] = len(got)
+    check(got == want, f"SelectVariants SNP wrote {len(got)} records, the callset has "
+                       f"{len(want)} SNVs")
+
+    qd_vcf = os.path.join(d, "qd.vcf")
+    tool_s["SelectVariants QD > 2.0"], _, _ = _run_tool(
+        ["SelectVariants", "-V", cs["vcf"], "-O", qd_vcf, "-select", "QD > 2.0"])
+    got = [s[:3] for s in _vcf_sites(qd_vcf)]
+    want = [s[:3] for s in sites if float(s[4]["QD"]) > 2.0]
+    records["SelectVariants QD > 2.0"] = len(got)
+    check(got == want, f"SelectVariants QD > 2.0 wrote {len(got)} records, {len(want)} have it")
+
+    filtered = os.path.join(d, "filtered.vcf")
+    tool_s["VariantFiltration"], _, _ = _run_tool(
+        ["VariantFiltration", "-V", cs["vcf"], "-O", filtered]
+        + sum((["--filter-expression", e, "--filter-name", n] for e, n, _, _ in SNP_HARD_FILTERS),
+              []))
+    fsites = _vcf_sites(filtered)
+    check([s[:3] for s in fsites] == [s[:3] for s in sites],
+          "VariantFiltration did not write the callset's records")
+    wrong = [s[0] for s in fsites
+             if set(s[3].split(";")) - {"PASS"} != _expected_filters(s[4])]
+    records["VariantFiltration"] = len(fsites)
+    records["filtered"] = sum(s[3] != "PASS" for s in fsites)
+    check(not wrong, f"VariantFiltration: FILTER wrong at {len(wrong)} records, e.g. {wrong[:5]}")
+    check(0 < records["filtered"] < len(fsites),
+          f"VariantFiltration filtered {records['filtered']} of {len(fsites)}")
+
+    grp = os.path.join(d, "eval.grp")
+    tool_s["VariantEval"], _, _ = _run_tool(["VariantEval", "--eval", filtered, "--comp",
+                                             cs["truth"], "-O", grp])
+    passing = [s for s in fsites if s[3] == "PASS"]
+    truth = {s[:3] for s in _vcf_sites(cs["truth"])}
+    counts = _eval_table(grp, "CountVariants")
+    overlap = _eval_table(grp, "CompOverlap")
+    want_counts = dict(nSNPs=sum(len(s[1]) == len(s[2]) == 1 for s in passing),
+                       nInsertions=sum(len(s[2]) > len(s[1]) for s in passing),
+                       nDeletions=sum(len(s[2]) < len(s[1]) for s in passing),
+                       nVariantsAtComp=sum(s[:3] in truth for s in passing))
+    got_counts = {k: int((counts if k != "nVariantsAtComp" else overlap)[k]) for k in want_counts}
+    records["VariantEval"] = got_counts
+    check(got_counts == want_counts, f"VariantEval: {got_counts}, the phase counts {want_counts}")
+
+    t0 = time.perf_counter()
+    ds = synthetic.write_gencode_datasource(os.path.join(d, "datasources"), cs["fasta"],
+                                            cs["contig"], seed=0, n_genes=GENCODE_GENES)
+    datasource_s = time.perf_counter() - t0
+    func_vcf, func_maf = os.path.join(d, "funcotated.vcf"), os.path.join(d, "funcotated.maf")
+    common = ["-V", filtered, "-R", cs["fasta"], "--data-sources-path", ds["dir"],
+              "--ref-version", ds["build"]]
+    tool_s["Funcotator VCF"], _, _ = _run_tool(["Funcotator", *common, "-O", func_vcf])
+    tool_s["Funcotator MAF"], _, _ = _run_tool(["Funcotator", *common, "-O", func_maf,
+                                                "--output-file-format", "MAF"])
+    with open(func_maf) as fh:
+        maf_rows = sum(1 for ln in fh if not ln.startswith(("#", "Hugo_Symbol")))
+    ref_seq = bytes(FastaReference(cs["fasta"]).fetch_bytes(cs["contig"])).decode().upper()
+    genes = ds["genes"]
+    classes, wrong, coding = {}, [], 0
+    for pos1, ref, alt, _, info, _ in _vcf_sites(func_vcf):
+        got = info["FUNCOTATION"].strip("[]").split("|")[5]
+        classes[got] = classes.get(got, 0) + 1
+        end1 = pos1 + len(ref) - 1
+        inside = [g for g in genes if g["start"] <= end1 and g["end"] >= pos1]
+        if not inside:
+            near = any(g["start"] <= end1 + FLANK_5P and g["end"] >= pos1 - 1 for g in genes)
+            want = "FIVE_PRIME_FLANK" if near else "IGR"
+        elif len(ref) == len(alt) == 1 and len(inside) == 1 and any(
+                a <= pos1 <= b for a, b in inside[0]["cds"]):
+            want = _codon_class(ref_seq, inside[0], pos1, alt)
+            coding += want is not None
+        else:
+            continue
+        if want is not None and got != want:
+            wrong.append((pos1, ref, alt, got, want))
+    records["Funcotator"] = dict(vcf=sum(classes.values()), maf=maf_rows, classes=classes,
+                                 coding_snvs_checked=coding)
+    check(not wrong, f"Funcotator: {len(wrong)} sites classified otherwise than the phase's "
+                     f"reading, e.g. {wrong[:5]}")
+    check(maf_rows == len(fsites) and coding > 0 and classes.get("IGR", 0) > 0,
+          f"Funcotator: {maf_rows} MAF rows, {coding} coding SNVs checked, classes {classes}")
+    ff = os.path.join(d, "filter_funcotations.vcf")
+    tool_s["FilterFuncotations"], _, _ = _run_tool(["FilterFuncotations", "-V", func_vcf,
+                                                    "-O", ff])
+    ff_sites = _vcf_sites(ff)
+    records["FilterFuncotations"] = dict(records=len(ff_sites), not_clinsig=sum(
+        "NOT_CLINSIG" in s[3] for s in ff_sites))
+    check(len(ff_sites) == len(fsites), f"FilterFuncotations wrote {len(ff_sites)} records")
+    return dict(tool_s=tool_s, records=records, datasource_s=datasource_s,
+                genes=len(genes), sites=len(sites))
+
+
+def phase_postcall(tmp, flow_sample, cs):
+    """FlowPairHMMAlignReadsToHaplotypes on the card (both flow kernels), then
+    the post-calling chain on the vqsr phase's callset."""
+    t0 = time.perf_counter()
+    flow = _postcall_flow(tmp, flow_sample)
+    chain = _postcall_chain(tmp, cs)
+    res = dict(phase="postcall", flow=flow, **chain, seconds=time.perf_counter() - t0)
+    emit(res)
     return res
 
 
@@ -2352,12 +2710,13 @@ def main():
         ramped = phase_ramped(sample, tmp, os.path.join(tmp, "out.vcf"))
         recaller = phase_recaller(sample, tmp)
         gvcf, kept_gvcf = phase_gvcf(sample, tmp)
-        flow = phase_flow(tmp)
+        flow, flow_sample = phase_flow(tmp)
         trio = phase_trio(tmp)
         m2 = phase_mutect2(tmp)
         pre, pre_sample = phase_preprocess(tmp)
         dist = phase_distributed(dev, tmp, sample, pre_sample)
-        phase_vqsr(dev, tmp)
+        _, callset = phase_vqsr(dev, tmp)
+        postcall = phase_postcall(tmp, flow_sample, callset)
         gcnv, gcnv_model = phase_gcnv(dev, tmp, sample)
         hmm = phase_cnv_hmm(dev, gcnv_model)
         del gcnv_model
@@ -2375,7 +2734,9 @@ def main():
         ("ramped", ramped), ("recaller", recaller), ("trio", trio), ("preprocess", pre),
         ("flow", flow), ("distributed", dist))]
     path_counts += [("distributed_hc", dist["hc_counts"]),
-                    ("reads_pipeline_spark", dist["rps_counts"])]
+                    ("reads_pipeline_spark", dist["rps_counts"]),
+                    ("postcall", _add_counts(postcall["flow"]["coset"]["counts"],
+                                             postcall["flow"]["dense"]["counts"]))]
 
     def by_path(name):
         return {path: counts[name]["launches"] for path, counts in path_counts
@@ -2435,7 +2796,19 @@ def main():
         launches_by_path=by_path("flow_pairhmm"), max_abs_err=fl["max_abs_err"],
         ms=fl["kernel_ms"], plain_ms=fl["plain_ms"], dense_plain_ms=fl["dense_plain_ms"],
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], rows=fl["rows"],
-        us_per_row=fl["us_per_row"], library_ms=None))
+        us_per_row=fl["us_per_row"], library_ms=None,
+        postcall_launch=dict((k, postcall["flow"]["coset"][k]) for k in (
+            "pairs", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by"))))
+    fd = postcall["flow"]["dense"]
+    kernels.append(dict(
+        name="flow_pairhmm_dense", route="cuda", source=src + "flow_pairhmm_dense.cu",
+        replaces="gatk_tpu/ops/flow_pairhmm.py:116 (flow_pairhmm_batch_jax under lax.scan, "
+                 "for flow orders that do not repeat with period 4; not a Pallas kernel)",
+        design="a block a pair over every column, prior gathered in the kernel",
+        launches=fd["counts"]["flow_pairhmm_dense"]["launches"],
+        launches_by_path=by_path("flow_pairhmm_dense"), max_abs_err=fd["max_abs_err"],
+        ms=fd["kernel_ms"], plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
+        bound_by=fd["bound_by"], rows=fd["rows"], us_per_row=fd["us_per_row"], library_ms=None))
     for kd in kernels:
         kd["max_abs_diff"] = kd["max_abs_err"]
     total_s = time.perf_counter() - t_start

@@ -87,7 +87,9 @@ def _register_builtin_tools():
     from .tools import gvcf_tools, bqsr_tools, metrics_tools  # noqa: F401
     from .tools import ramped_hc_tool, variant_recalling_tool  # noqa: F401
     from .tools import vqsr_tools, groundtruth_tools, featuremapping_tools  # noqa: F401
+    from .tools import varianteval_tool, funcotator_tool  # noqa: F401
     from .tools import variant_tools, basic_tools, analysis_tools  # noqa: F401
+    from .tools import misc_tools, select_variants, variant_filtration  # noqa: F401
     from .tools import spark_compat  # noqa: F401  (last: it aliases registered tools)
 
 

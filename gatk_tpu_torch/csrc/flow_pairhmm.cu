@@ -37,7 +37,8 @@
 // tests/test_torch_kernel_cuda.py and chip_smoke.py). Each warp checks the
 // rule on its read's and haplotype's flow bases and flags a read or haplotype
 // that breaks it in `bad` (1 + its index, the largest such); the entry
-// (ops/flow_pairhmm.flow_pairhmm_pairs) raises then.
+// (ops/flow_pairhmm.flow_pairhmm_pairs) then scores the pairs that hold such
+// a read or haplotype again with the dense kernel, csrc/flow_pairhmm_dense.cu.
 //
 // Inputs (ops/flow_pairhmm.pack_flow_tables): tables (NR, Rp, T1) f32, row k of
 // read r holding P(true hmer = h | flow k) for h < T1; rfo (NR, Rp) u8 flow

@@ -32,7 +32,9 @@ The flow-space PairHMM kernel (csrc/flow_pairhmm.cu, wrapper `flow_pairhmm`)
 runs a warp a (read, haplotype) pair over the coset cells of the read's flow
 rows, its prior gathered from the packed tables inside the kernel, its carried
 rows in registers (in the warp's shared memory for the widest haplotypes);
-ops/flow_pairhmm.py holds its plain version.
+the dense kernel (csrc/flow_pairhmm_dense.cu, wrapper `flow_pairhmm_dense`)
+runs a block a pair over every column, for the pairs whose flow order breaks
+the coset rule; ops/flow_pairhmm.py holds the plain versions of both.
 """
 from __future__ import annotations
 
@@ -118,6 +120,7 @@ def library(name: str) -> ctypes.CDLL:
             _bind_pairhmm_matrix(_libs["pairhmm_matrix"])
             _bind_cnv_hmm(_libs["cnv_hmm"])
             _bind_flow_pairhmm(_libs["flow_pairhmm"])
+            _bind_flow_pairhmm_dense(_libs["flow_pairhmm_dense"])
         return _libs[name]
 
 
@@ -149,6 +152,15 @@ def _bind_flow_pairhmm(lib):
     lib.flow_pairhmm.argtypes = [vp] * 11 + [i] * 6 + [vp]
     lib.flow_pairhmm_smem.restype = ctypes.c_longlong
     lib.flow_pairhmm_smem.argtypes = [i, i, ctypes.POINTER(i)]
+
+
+def _bind_flow_pairhmm_dense(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.flow_pairhmm_dense.restype = i
+    lib.flow_pairhmm_dense.argtypes = [vp] * 11 + [i] * 7 + [vp]
+    for name in ("flow_pairhmm_dense_state", "flow_pairhmm_dense_smem"):
+        getattr(lib, name).restype = ctypes.c_longlong
+        getattr(lib, name).argtypes = [i]
 
 
 def plan_groups(rows: torch.Tensor, hlen: torch.Tensor | None = None, hmax: int = 0):
@@ -376,20 +388,9 @@ FLOW_TABLES = {"tables": (torch.float32, 3), "rfo": (torch.uint8, 2),
                "hkey": (torch.int32, 2), "hfo": (torch.uint8, 2), "hlen": (torch.int32, 1)}
 
 
-def flow_pairhmm(tab, ri: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the flow-space PairHMM kernel (csrc/flow_pairhmm.cu) on PyTorch's
-    current stream over the pairs (read ri[b], haplotype hi[b]) of `tab`
-    (ops/flow_pairhmm.pack_flow_tables: tables (NR, Rp, T1) f32, rfo (NR, Rp)
-    u8, trans (NR, Rp, 6) f32, rlen (NR,) i32, hkey (NH, Hp) i32, hfo
-    (NH, Hp) u8, hlen (NH,) i32), all contiguous on one CUDA device; ri, hi
-    (B,) int32. Returns (out, bad) without waiting: out (B,) f32 log10
-    likelihoods (ops/flow_pairhmm.py states the DP; NaN for indices or lengths
-    out of range), bad (2,) int32, 1 + the largest index of a read and of a
-    haplotype whose flow bases break the coset rule, 0 where none does
-    (ops/flow_pairhmm.coset_rule_breaks). A haplotype of up to 507 flows
-    keeps its state in registers; a wider one in shared memory, which holds
-    Hp up to about 21,000 flows."""
-    what = "flow_pairhmm"
+def _check_flow_operands(tab, ri, hi, what):
+    """The checks both flow kernels make of pack_flow_tables' tables and the
+    pairs; returns (device, B, NR, Rp, T1, NH, Hp)."""
     dev = tab["tables"].device
     _check(dev.type == "cuda", what, f"tables are on {dev}, not a CUDA device")
     for name, (dtype, dim) in FLOW_TABLES.items():
@@ -406,9 +407,28 @@ def flow_pairhmm(tab, ri: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor,
            "hfo and hlen must be (NH, Hp) and (NH,) of hkey (NH, Hp)")
     _check_pairs(ri, hi, dev, what)
     B = ri.numel()
-    _check(B > 0 and NR > 0 and NH > 0 and Rp > 0, what,
-           f"needs pairs, reads, haplotypes and flows: B={B}, NR={NR}, NH={NH}, Rp={Rp}")
-    _check(0 < T1 < 0xFFFF, what, f"T1 = {T1} table columns: keys must fit 16 bits")
+    _check(B > 0 and NR > 0 and NH > 0 and Rp > 0 and T1 > 0, what,
+           f"needs pairs, reads, haplotypes, flows and table columns: B={B}, NR={NR}, "
+           f"NH={NH}, Rp={Rp}, T1={T1}")
+    return dev, B, NR, Rp, T1, NH, Hp
+
+
+def flow_pairhmm(tab, ri: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the flow-space PairHMM kernel (csrc/flow_pairhmm.cu) on PyTorch's
+    current stream over the pairs (read ri[b], haplotype hi[b]) of `tab`
+    (ops/flow_pairhmm.pack_flow_tables: tables (NR, Rp, T1) f32, rfo (NR, Rp)
+    u8, trans (NR, Rp, 6) f32, rlen (NR,) i32, hkey (NH, Hp) i32, hfo
+    (NH, Hp) u8, hlen (NH,) i32), all contiguous on one CUDA device; ri, hi
+    (B,) int32. Returns (out, bad) without waiting: out (B,) f32 log10
+    likelihoods (ops/flow_pairhmm.py states the DP; NaN for indices or lengths
+    out of range), bad (2,) int32, 1 + the largest index of a read and of a
+    haplotype whose flow bases break the coset rule, 0 where none does
+    (ops/flow_pairhmm.coset_rule_breaks). A haplotype of up to 507 flows
+    keeps its state in registers; a wider one in shared memory, which holds
+    Hp up to about 21,000 flows."""
+    what = "flow_pairhmm"
+    dev, B, NR, Rp, T1, NH, Hp = _check_flow_operands(tab, ri, hi, what)
+    _check(T1 < 0xFFFF, what, f"T1 = {T1} table columns: keys must fit 16 bits")
     lib = library("flow_pairhmm")
     warps = ctypes.c_int(0)
     smem = lib.flow_pairhmm_smem(Hp, T1, ctypes.byref(warps))
@@ -422,3 +442,34 @@ def flow_pairhmm(tab, ri: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor,
                               torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, rc, what, f"B={B}, Rp={Rp}, T1={T1}, Hp={Hp}")
     return out, bad
+
+
+def flow_pairhmm_dense(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Launch the dense flow-space PairHMM kernel (csrc/flow_pairhmm_dense.cu)
+    on PyTorch's current stream over the pairs (read ri[b], haplotype hi[b])
+    of `tab`, the tables and pairs flow_pairhmm takes. Returns (B,) f32 log10
+    likelihoods without waiting: gatk_tpu's dense scan over the W = Hp + 5
+    columns of the tables' haplotype width (ops/flow_pairhmm.py states it;
+    NaN for indices or lengths out of range), for any flow order. A block a
+    pair keeps its 9 x Wp floats of state (Wp = W padded to a multiple of 4)
+    and its reductions in shared memory up to Hp = 6,447 flows; past that the
+    wrapper allocates the state in device memory for 8 blocks an SM, which
+    walk the pairs."""
+    what = "flow_pairhmm_dense"
+    dev, B, NR, Rp, T1, NH, Hp = _check_flow_operands(tab, ri, hi, what)
+    lib = library("flow_pairhmm_dense")
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    if lib.flow_pairhmm_dense_smem(Hp) <= FLOW_MAX_SMEM:
+        grid, scratch = B, None
+    else:
+        grid = min(B, 8 * torch.cuda.get_device_properties(dev).multi_processor_count)
+        scratch = torch.empty(grid * lib.flow_pairhmm_dense_state(Hp), dtype=torch.float32,
+                              device=dev)
+    tensors = [tab[name] for name in FLOW_TABLES] + [ri, hi, out]
+    with torch.cuda.device(dev):
+        rc = lib.flow_pairhmm_dense(*(t.data_ptr() for t in tensors),
+                                    None if scratch is None else scratch.data_ptr(),
+                                    B, NR, Rp, T1, NH, Hp, grid,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, rc, what, f"B={B}, Rp={Rp}, T1={T1}, Hp={Hp}")
+    return out

@@ -23,16 +23,20 @@ GATK loops: on a CUDA tensor it launches the hand-written Hopper kernel
 csrc/flow_pairhmm.cu (ops/_kernels.flow_pairhmm), which gathers each cell's
 prior from the tables itself, and raises if the launch fails; on a CPU tensor
 it runs `flow_pairhmm_pairs_plain`, the plain PyTorch version on the same
-lattice, which is also the kernel's oracle. Both need flow bases that repeat
-with period 4 over four distinct bases (`coset_rule_breaks`), and the entry
-raises ValueError where they do not. Its `launches` and `pairs` count the
-kernel's launches and the pairs they scored.
+lattice, which is also the kernel's oracle. The lattice needs flow bases that
+repeat with period 4 over four distinct bases (`rule_broken_pairs`); the
+pairs whose read or haplotype breaks that rule (an order such as TGCATGAC)
+go to gatk_tpu's dense scan instead: on the card the hand-written kernel
+csrc/flow_pairhmm_dense.cu (ops/_kernels.flow_pairhmm_dense), on the CPU its
+plain version `flow_pairhmm_dense_plain`. The entry's `launches` and `pairs`
+count the coset kernel's launches and the pairs they scored, its
+`dense.launches` and `dense.pairs` the dense kernel's.
 
 `flow_pairhmm_batch_plain(prior, trans, rlen, hlen)` is gatk_tpu's dense scan
 in PyTorch, on the (B, Rp, W) prior `flow_prior` gathers from the same tables
 (equal bit for bit to gatk_tpu's host packing `_pack_flow_batch`, kept here as
 the gather's oracle). `compute_flow_likelihood_matrix` runs it on the CPU, so
-that the CPU result is gatk_tpu's, and the kernel on a card.
+that the CPU result is gatk_tpu's, and the kernels on a card.
 """
 from __future__ import annotations
 
@@ -279,49 +283,58 @@ def flow_pairhmm_batch_plain(prior: torch.Tensor, trans: torch.Tensor, rlen: tor
     return out + acc_at
 
 
+def _rows_breaking_rule(fo: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: whether row r's flow bases fo[r, :lens[r]] break the coset
+    rule: the bases repeat with period FLOW_SIZE over FLOW_SIZE distinct
+    bases (TGCA, as HaplotypeCaller's --flow-order gives them), which confines
+    every pair's nonzero DP cells to one (column - row) mod 4 coset."""
+    n, L = fo.shape
+    f = torch.arange(L, device=fo.device)
+    inside = f[None, :] < lens[:, None]
+    bad = (fo != fo[:, f % FLOW_SIZE]) & inside
+    for a in range(1, min(FLOW_SIZE, L)):
+        for b in range(a):
+            bad[:, a] |= (fo[:, a] == fo[:, b]) & inside[:, a]
+    return bad.any(dim=1)
+
+
+def rule_broken_pairs(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(B,) bool on the tables' device: the pairs whose read or haplotype
+    breaks the coset rule (_rows_breaking_rule). The entry scores them by the
+    dense route, the rest on the coset lattice."""
+    reads = _rows_breaking_rule(tab["rfo"], tab["rlen"])
+    haps = _rows_breaking_rule(tab["hfo"], tab["hlen"])
+    return reads[ri.long()] | haps[hi.long()]
+
+
 def coset_rule_breaks(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """(2,) int32 on the tables' device: 1 + the largest index of a read of
-    ri, and of a haplotype of hi, whose flow bases within its length break the
-    coset rule, 0 where none does. The rule: the bases repeat with period
-    FLOW_SIZE over FLOW_SIZE distinct bases (TGCA, as HaplotypeCaller's
-    --flow-order gives them), which confines every pair's nonzero DP cells to
-    one (column - row) mod 4 coset. The kernel flags the same reads and
-    haplotypes in its own pass."""
-
-    def breaks(fo, lens, used):
-        n, L = fo.shape
-        f = torch.arange(L, device=fo.device)
-        inside = f[None, :] < lens[:, None]
-        bad = (fo != fo[:, f % FLOW_SIZE]) & inside
-        for a in range(1, min(FLOW_SIZE, L)):
-            for b in range(a):
-                bad[:, a] |= (fo[:, a] == fo[:, b]) & inside[:, a]
-        idx = torch.arange(1, n + 1, dtype=torch.int32, device=fo.device)
-        return (idx * (bad.any(dim=1) & used)).max()
-
+    """(2,) int32 on the tables' device, the plain version of the coset
+    kernel's flags: 1 + the largest index of a read of ri, and of a haplotype
+    of hi, that breaks the coset rule (_rows_breaking_rule), 0 where none
+    does."""
     out = []
     for fo, lens, pick in ((tab["rfo"], tab["rlen"], ri), (tab["hfo"], tab["hlen"], hi)):
         used = torch.zeros(fo.shape[0], dtype=torch.bool, device=fo.device)
         used[pick.long()] = True
-        out.append(breaks(fo, lens, used))
+        idx = torch.arange(1, fo.shape[0] + 1, dtype=torch.int32, device=fo.device)
+        out.append((idx * (_rows_breaking_rule(fo, lens) & used)).max())
     return torch.stack(out).to(torch.int32)
 
 
-def raise_if_rule_broken(tab, bad: torch.Tensor):
-    """ValueError naming the flow order of the read or haplotype that `bad`
-    (coset_rule_breaks, or the kernel's flags) names, if it names one. Reading
-    `bad` is the one host synchronisation of a call."""
-    tables = (("read", tab["rfo"], tab["rlen"]), ("haplotype", tab["hfo"], tab["hlen"]))
-    for (kind, fo, lens), flag in zip(tables, bad.tolist()):
-        i = flag - 1
-        if i < 0:
-            continue
-        order = bytes(fo[i, : min(int(lens[i]), 2 * FLOW_SIZE)].tolist()).decode("latin-1")
-        raise ValueError(
-            f"flow order {order!r}... of {kind} {i} does not repeat with period {FLOW_SIZE} "
-            f"over {FLOW_SIZE} distinct bases: the flow PairHMM on the card computes the one "
-            f"(column - row) mod {FLOW_SIZE} coset of the DP that GATK's FlowBasedPairHMM "
-            "loops over, which needs such an order")
+def flow_pairhmm_dense_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """gatk_tpu's dense scan of the pairs (read ri[b], haplotype hi[b]) of
+    `tab`: flow_pairhmm_batch_plain on flow_prior, MAX_PRIOR_FLOATS of prior at
+    a time (parts of whole pairs). The plain version of
+    csrc/flow_pairhmm_dense.cu, and the CPU route of
+    compute_flow_likelihood_matrix."""
+    Rp, Hp = tab["rfo"].shape[1], tab["hkey"].shape[1]
+    step = max(1, MAX_PRIOR_FLOATS // (Rp * (Hp + 1 + FLOW_SIZE)))
+    outs = [torch.zeros(0, dtype=torch.float32, device=tab["tables"].device)]
+    for lo in range(0, ri.numel(), step):
+        r, h = ri[lo:lo + step], hi[lo:lo + step]
+        outs.append(flow_pairhmm_batch_plain(flow_prior(tab, r, h), tab["trans"][r],
+                                             tab["rlen"][r], tab["hlen"][h]))
+    return torch.cat(outs)
 
 
 def flow_pairhmm_pairs_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -406,22 +419,35 @@ def flow_pairhmm_pairs_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.T
 
 class _FlowEntry(_Counted):
     """`flow_pairhmm_pairs(tab, ri, hi)`: tables on a CUDA device launch the
-    Hopper kernel (ops/_kernels.flow_pairhmm), tables on the CPU run
-    flow_pairhmm_pairs_plain; either raises ValueError where a read's or a
-    haplotype's flow bases break the coset rule (the kernel flags them, and
-    the entry reads its flags once a call). `launches` and `pairs` count the
-    kernel's launches and the pairs they scored; the plain version is not
-    counted."""
+    coset kernel (ops/_kernels.flow_pairhmm) over every pair and, where it
+    flags a read or a haplotype that breaks the coset rule, the dense kernel
+    (ops/_kernels.flow_pairhmm_dense) over the pairs that hold one
+    (rule_broken_pairs), whose results replace the coset kernel's; reading the
+    flags is the one host synchronisation of a call. Tables on the CPU run the
+    plain versions on the same split: flow_pairhmm_pairs_plain and
+    flow_pairhmm_dense_plain. `launches` and `pairs` count the coset kernel's
+    launches and the pairs they scored, `dense.launches` and `dense.pairs` the
+    dense kernel's; the plain versions are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.dense = _Counted()
 
     def __call__(self, tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
         if tab["tables"].device.type == "cpu":
-            raise_if_rule_broken(tab, coset_rule_breaks(tab, ri, hi))
-            return flow_pairhmm_pairs_plain(tab, ri, hi)
+            broken = rule_broken_pairs(tab, ri, hi)
+            out = flow_pairhmm_pairs_plain(tab, ri, hi)
+            if broken.any():
+                out[broken] = flow_pairhmm_dense_plain(tab, ri[broken], hi[broken])
+            return out
         from . import _kernels
 
         out, bad = _kernels.flow_pairhmm(tab, ri, hi)
         self._count(ri.numel())
-        raise_if_rule_broken(tab, bad)
+        if any(bad.tolist()):
+            idx = rule_broken_pairs(tab, ri, hi).nonzero().squeeze(1)
+            out[idx] = _kernels.flow_pairhmm_dense(tab, ri[idx], hi[idx])
+            self.dense._count(idx.numel())
         return out
 
 
@@ -432,9 +458,9 @@ def compute_flow_likelihood_matrix(haps, reads, device=None) -> np.ndarray:
     """(n_reads, n_haps) float64 log10 matrix of every read with every
     haplotype on `device` (devices.resolve_device: the port's default unless
     given; raises for CUDA without a card). On a card: one launch of the
-    kernel over the region (flow_pairhmm_pairs). On the CPU: gatk_tpu's
-    dense scan (flow_pairhmm_batch_plain on flow_prior), MAX_PRIOR_FLOATS of
-    prior at a time, so that the result is gatk_tpu's."""
+    coset kernel over the region (flow_pairhmm_pairs), and one of the dense
+    kernel where a flow order breaks the coset rule. On the CPU: gatk_tpu's
+    dense scan (flow_pairhmm_dense_plain), so that the result is gatk_tpu's."""
     pairs = len(reads) * len(haps)
     if not pairs:
         return np.zeros((len(reads), len(haps)))
@@ -446,12 +472,5 @@ def compute_flow_likelihood_matrix(haps, reads, device=None) -> np.ndarray:
     if dev.type != "cpu":
         out = flow_pairhmm_pairs(tab, ri_all, hi_all)
     else:
-        Rp, Hp = tab["rfo"].shape[1], tab["hkey"].shape[1]
-        step = max(1, MAX_PRIOR_FLOATS // (Rp * (Hp + 1 + FLOW_SIZE)))
-        outs = []
-        for lo in range(0, pairs, step):
-            ri, hi = ri_all[lo:lo + step], hi_all[lo:lo + step]
-            outs.append(flow_pairhmm_batch_plain(flow_prior(tab, ri, hi), tab["trans"][ri],
-                                                 tab["rlen"][ri], tab["hlen"][hi]))
-        out = torch.cat(outs)
+        out = flow_pairhmm_dense_plain(tab, ri_all, hi_all)
     return out.cpu().numpy().astype(np.float64).reshape(len(reads), len(haps))

@@ -114,17 +114,22 @@ def _cigar(where):
             np.array([n for _, n in ops], np.int32))
 
 
-def _write_fasta(out_dir, contig, ref):
-    fasta = os.path.join(out_dir, "ref.fa")
-    width = 60
-    with open(fasta, "wb") as fh:
-        head = f">{contig}\n".encode()
-        fh.write(head)
-        for k in range(0, len(ref), width):
-            fh.write(bytes(ref[k : k + width]) + b"\n")
-    with open(fasta + ".fai", "w") as fh:
-        fh.write(f"{contig}\t{len(ref)}\t{len(head)}\t{width}\t{width + 1}\n")
+def _write_fasta_records(fasta, records, width=60):
+    """Write the (name, bases) records as a FASTA at `fasta` and its .fai."""
+    offset = 0
+    with open(fasta, "wb") as fh, open(fasta + ".fai", "w") as fai:
+        for name, seq in records:
+            head = f">{name}\n".encode()
+            fh.write(head)
+            fai.write(f"{name}\t{len(seq)}\t{offset + len(head)}\t{width}\t{width + 1}\n")
+            body = b"".join(bytes(seq[k : k + width]) + b"\n" for k in range(0, len(seq), width))
+            fh.write(body)
+            offset += len(head) + len(body)
     return fasta
+
+
+def _write_fasta(out_dir, contig, ref):
+    return _write_fasta_records(os.path.join(out_dir, "ref.fa"), [(contig, ref)])
 
 
 def _make_read(rng, k, bases, where, err_rate, qual_range):
@@ -727,6 +732,29 @@ def write_flow_sample(out_dir, seed=0, contig="chrM", length=16569, n_reads=3400
                 hmer_indels=hmer, n_reads=n_reads, flow_order=FLOW_ORDER)
 
 
+def write_flow_haplotypes(path, fasta, contig, variants, n_variants=4, seed=0,
+                          window=(300, 400)):
+    """Write the haplotypes FASTA (+ .fai) that FlowPairHMMAlignReadsToHaplotypes
+    scores reads against: for each of the first n_variants planted variants, the
+    reference allele's and the planted allele's window of `window` reference
+    bases (its length and offset drawn from the seed) around it, named
+    <contig>_<1-based pos>_ref and _alt. Returns the names in file order."""
+    from ..io.fasta import FastaReference
+
+    rng = np.random.default_rng(seed)
+    ref = np.frombuffer(bytes(FastaReference(fasta).fetch_bytes(contig)), np.uint8)
+    records = []
+    for v in variants[:n_variants]:
+        n = int(rng.integers(window[0], window[1] + 1))
+        lo = max(0, v.pos - int(rng.integers(n // 4, 3 * n // 4)))
+        hi = min(len(ref), lo + n)
+        tail = ref[v.pos + len(v.ref) : hi]
+        alt = np.concatenate([ref[lo : v.pos], np.frombuffer(v.alt.encode(), np.uint8), tail])
+        records += [(f"{contig}_{v.pos + 1}_ref", ref[lo:hi]), (f"{contig}_{v.pos + 1}_alt", alt)]
+    _write_fasta_records(path, records)
+    return [name for name, _ in records]
+
+
 # (mean, sd) of each annotation of cnn_score.ANNOTATIONS at true sites and at
 # artifacts; FS, SOR and DP are drawn as |N(mean, sd)|
 CALLSET_ANNOTATIONS = (
@@ -836,3 +864,117 @@ def write_callset(out_dir, seed=0, contig="20", length=20_000_000, n_snv=18000, 
     torch.save(_cnn_1d_state_dict(rng), weights)
     return dict(fasta=fasta, vcf=vcf_path, truth=truth_path, weights_1d=weights, contig=contig,
                 length=length, sites=sites)
+
+
+# ---------------------------------------------------------------------------
+# A GENCODE datasource for Funcotator
+# ---------------------------------------------------------------------------
+
+_STOPS = (b"TAA", b"TAG", b"TGA")
+_COMPLEMENT = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+def _stop_free_codons(seq, x, limit):
+    """How many codons from seq[x] on, up to `limit`, hold no stop codon."""
+    n = 0
+    while n < limit and x + 3 * n + 3 <= len(seq) and seq[x + 3 * n : x + 3 * n + 3] not in _STOPS:
+        n += 1
+    return n
+
+
+def _gene_model(rng, seq, n_exons, min_codons=4):
+    """Exons [(a, b)] (0-based, end exclusive) of a transcript on `seq`, its
+    spliced sequence in transcript orientation, and its CDS (c0, c1) in
+    transcript coordinates (0-based, end exclusive): a 5' UTR in the first
+    exon, n_exons codon-aligned CDS pieces, each a stop-free run of at least
+    min_codons codons, joined by introns of 100-1,500 bases, and a 3' UTR after
+    the last codon. None where `seq` is too short for it."""
+    x = int(rng.integers(20, 81))
+    exons, cds = [], 0
+    for k in range(n_exons):
+        while x + 3 * min_codons <= len(seq) and _stop_free_codons(seq, x, min_codons) < min_codons:
+            x += 1
+        if x + 3 * min_codons > len(seq):
+            return None
+        if k == 0:
+            u5 = x
+        n = _stop_free_codons(seq, x, int(rng.integers(min_codons, 61)))
+        exons.append([0 if k == 0 else x, x + 3 * n])
+        cds += 3 * n
+        x += 3 * n + int(rng.integers(100, 1501))
+    exons[-1][1] = min(len(seq), exons[-1][1] + int(rng.integers(20, 201)))
+    spliced = b"".join(seq[a:b] for a, b in exons)
+    return [tuple(e) for e in exons], spliced, (u5, u5 + cds)
+
+
+def write_gencode_datasource(out_dir, fasta, contig, seed=0, n_genes=200, build="hg38"):
+    """Write a GENCODE datasource for Funcotator over `contig` of `fasta`, in
+    the layout GencodeDataSource.load reads: <out_dir>/gencode/<build>/
+    gencode.config (type gencode), gencode.gtf and gencode.transcripts.fa.
+
+    n_genes protein-coding genes of one transcript each, one in each of
+    n_genes equal slots of the contig at an offset drawn from the seed, on
+    either strand: 4-10 exons, a 5' UTR in the first, a 3' UTR in the last,
+    and a CDS of codon-aligned stop-free pieces (_gene_model), so that every
+    codon of a CDS translates to an amino acid. The transcript FASTA holds each
+    spliced transcript, with its UTR5/CDS/UTR3 ranges in the header as GENCODE
+    writes them.
+
+    Returns dict(dir=out_dir, build, genes=[dict(gene, transcript, strand,
+    start, end, exons, cds)]) with 1-based inclusive genomic coordinates;
+    exons and cds in genomic order."""
+    from ..io.fasta import FastaReference
+
+    rng = np.random.default_rng(seed)
+    ref = bytes(FastaReference(fasta).fetch_bytes(contig)).upper()
+    slot = len(ref) // n_genes
+    base = os.path.join(out_dir, "gencode", build)
+    os.makedirs(base, exist_ok=True)
+    genes, gtf, fa = [], [], []
+    for g in range(n_genes):
+        strand = "+" if rng.random() < 0.5 else "-"
+        span = min(slot, 30_000)
+        g0 = g * slot + int(rng.integers(0, slot - span + 1))
+        seq = ref[g0 : g0 + span]
+        if strand == "-":
+            seq = seq.translate(_COMPLEMENT)[::-1]
+        model = _gene_model(rng, seq, int(rng.integers(4, 11)))
+        if model is None:
+            continue
+        exons_t, spliced, (c0, c1) = model
+
+        def genomic(a, b):  # transcript-strand [a, b) -> 1-based inclusive genomic
+            return (g0 + a + 1, g0 + b) if strand == "+" else (g0 + span - b + 1, g0 + span - a)
+
+        exons = sorted(genomic(a, b) for a, b in exons_t)
+        cds_t, t = [], 0
+        for a, b in exons_t:  # the CDS part of each exon, in transcript coordinates
+            lo, hi = max(c0, t), min(c1, t + b - a)
+            if lo < hi:
+                cds_t.append((a + lo - t, a + hi - t))
+            t += b - a
+        cds = sorted(genomic(a, b) for a, b in cds_t)
+        gid, tid, name = f"ENSG{g:011d}.1", f"ENST{g:011d}.1", f"GENE{g}"
+        start, end = exons[0][0], exons[-1][1]
+        attrs = (f'gene_id "{gid}"; transcript_id "{tid}"; gene_type "protein_coding"; '
+                 f'gene_name "{name}"; transcript_type "protein_coding"; '
+                 f'transcript_name "{name}-201"; tag "basic";')
+        gtf.append(f"{contig}\tSYNTHETIC\tgene\t{start}\t{end}\t.\t{strand}\t.\t"
+                   f'gene_id "{gid}"; gene_type "protein_coding"; gene_name "{name}";\n')
+        gtf.append(f"{contig}\tSYNTHETIC\ttranscript\t{start}\t{end}\t.\t{strand}\t.\t{attrs}\n")
+        for kind, parts in (("exon", exons), ("CDS", cds)):
+            for a, b in parts:
+                gtf.append(f"{contig}\tSYNTHETIC\t{kind}\t{a}\t{b}\t.\t{strand}\t.\t{attrs}\n")
+        n = len(spliced)
+        fa.append((f"{tid}|{gid}|-|-|{name}-201|{name}|{n}|UTR5:1-{c0}|CDS:{c0 + 1}-{c1}|"
+                   f"UTR3:{c1 + 1}-{n}|", spliced))
+        genes.append(dict(gene=name, transcript=tid, strand=strand, start=start, end=end,
+                          exons=exons, cds=cds))
+    with open(os.path.join(base, "gencode.gtf"), "w") as fh:
+        fh.write("##description: synthetic GENCODE annotation\n")
+        fh.writelines(gtf)
+    _write_fasta_records(os.path.join(base, "gencode.transcripts.fa"), fa)
+    with open(os.path.join(base, "gencode.config"), "w") as fh:
+        fh.write(f"name = Gencode\nversion = 43\nsrc_file = gencode.gtf\ntype = gencode\n"
+                 f"gencode_fasta_path = gencode.transcripts.fa\n")
+    return dict(dir=out_dir, build=build, genes=genes)

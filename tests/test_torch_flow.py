@@ -7,11 +7,12 @@ version flow_pairhmm_batch_plain (the CPU route), on the same packed arrays;
 both are held to the host float64 DP within gatk_tpu's own 2e-3
 (tests/test_flow.py). The port's plain version of csrc/flow_pairhmm.cu,
 flow_pairhmm_pairs_plain, which walks the coset lattice from the packed
-tables, is held to both batched versions, and the entry's coset rule is shown
-to refuse a flow order that is not 4-periodic. Then the prior the port gathers
-on the device against gatk_tpu's host packing, bit for bit; HaplotypeCaller
---likelihood-calculation-engine FlowBasedHMM through both CLIs (the port with
---device cpu) on a synthetic flow sample; and the flow tools.
+tables, is held to both batched versions, and the entry is shown to score a
+flow order that is not 4-periodic by the dense scan, as gatk_tpu does. Then
+the prior the port gathers on the device against gatk_tpu's host packing, bit
+for bit; HaplotypeCaller --likelihood-calculation-engine FlowBasedHMM through
+both CLIs (the port with --device cpu) on a synthetic flow sample; the flow
+tools; and FlowPairHMMAlignReadsToHaplotypes in both packages.
 """
 import os
 
@@ -31,6 +32,7 @@ from tests.test_torch_pairhmm import one_torch_thread  # noqa: F401
 
 BATCH_TOL = 1e-4  # |port plain - gatk_tpu batch| per pair, log10
 HOST_TOL = 2e-3  # either batch against the host f64 DP (tests/test_flow.py:108-122)
+PRINTED_TOL = 1e-4 + 1e-9  # one step of a 4th decimal, as the value is printed
 
 
 def _objects(mod, hap_bases, read_specs):
@@ -157,46 +159,70 @@ def test_pairs_entry_matches_dense_plain(seed, read_lens, hap_lens, edges):
 EIGHT = "TGCATGAC"  # an 8-letter flow order that does not repeat with period 4
 
 
-def test_coset_rule_refuses_an_order_that_is_not_4_periodic():
-    """coset_rule_breaks, the check the CUDA entry makes (its kernel flags the
-    same reads and haplotypes), run on CPU tables: TGCA and ACGT keep the
-    rule, a haplotype or a read in an 8-letter order that is not 4-periodic
-    breaks it, and the entry raises ValueError naming that order. The CPU
-    route of compute_flow_likelihood_matrix stays gatk_tpu's dense scan and
-    gives gatk_tpu's matrix for such an order."""
+def _jax_dense(haps, reads, ri, hi):
+    """gatk_tpu's dense scan (flow_pairhmm_batch_jax on its host packing) of
+    the pairs (reads[ri[b]], haps[hi[b]])."""
+    packed = jax_fp._pack_flow_batch(haps, reads, list(zip(ri.tolist(), hi.tolist())))
+    return np.asarray(jax_fp.flow_pairhmm_batch_jax(packed["prior"], packed["trans"],
+                                                    packed["rlen"], packed["hlen"]))
+
+
+def _close_to_jax(got, want):
+    fin = np.isfinite(want)
+    assert np.array_equal(fin, np.isfinite(got)) and fin.any()
+    assert (got[~fin] == -np.inf).all()
+    assert np.abs(got[fin] - want[fin]).max() <= BATCH_TOL
+
+
+def test_entry_scores_an_order_that_is_not_4_periodic_by_the_dense_scan():
+    """The coset rule (coset_rule_breaks, the plain version of the coset
+    kernel's flags, and rule_broken_pairs) on CPU tables: TGCA and ACGT keep
+    it, a haplotype or a read in an 8-letter order that is not 4-periodic
+    breaks it. The entry on CPU tables scores the pairs that break it by the
+    dense scan, as the CUDA entry does with its dense kernel, and gives
+    gatk_tpu's flow_pairhmm_batch_jax result for them (and for the pairs
+    that keep it); the CPU route of compute_flow_likelihood_matrix gives
+    gatk_tpu's matrix for such an order."""
     hap_bases, read_specs = synthetic.flow_batch(7, (60, 90), (80, 120))
+    ri, hi = torch.tensor([0, 0, 1, 1], dtype=torch.int32), torch.tensor([0, 1, 0, 1],
+                                                                         dtype=torch.int32)
     for order in ("TGCA", "ACGT"):
         haps = [port_flow.FlowBasedHaplotype(h, order) for h in hap_bases]
         reads = [port_flow.FlowBasedRead(b, q, order, tp=tp) for b, q, tp in read_specs]
         tab = port_fp.pack_flow_tables(haps, reads, "cpu")
-        ri, hi = torch.tensor([0, 0, 1, 1], dtype=torch.int32), torch.tensor([0, 1, 0, 1],
-                                                                             dtype=torch.int32)
         assert port_fp.coset_rule_breaks(tab, ri, hi).tolist() == [0, 0]
+        assert not port_fp.rule_broken_pairs(tab, ri, hi).any()
         assert torch.isfinite(port_fp.flow_pairhmm_pairs(tab, ri, hi)).all()
-    haps = [port_flow.FlowBasedHaplotype(hap_bases[0]), port_flow.FlowBasedHaplotype(hap_bases[1],
-                                                                                     EIGHT)]
-    reads = [port_flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
-    tab = port_fp.pack_flow_tables(haps, reads, "cpu")
+    orders = [("TGCA", EIGHT), ("TGCA", "TGCA")]
+    jh = [jax_flow.FlowBasedHaplotype(h, o) for h, o in zip(hap_bases, orders[0])]
+    ph = [port_flow.FlowBasedHaplotype(h, o) for h, o in zip(hap_bases, orders[0])]
+    jr = [jax_flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
+    pr = [port_flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
+    tab = port_fp.pack_flow_tables(ph, pr, "cpu")
     assert port_fp.coset_rule_breaks(tab, ri, hi).tolist() == [0, 2]
     assert port_fp.coset_rule_breaks(tab, ri[hi == 0], hi[hi == 0]).tolist() == [0, 0]
-    with pytest.raises(ValueError, match=f"flow order '{EIGHT}'.* haplotype 1 .*period 4"):
-        port_fp.flow_pairhmm_pairs(tab, ri, hi)
-    reads[1] = port_flow.FlowBasedRead(*read_specs[1][:2], EIGHT, tp=read_specs[1][2])
-    tab = port_fp.pack_flow_tables(haps[:1], reads, "cpu")
-    zero = torch.zeros(2, dtype=torch.int32)
-    assert port_fp.coset_rule_breaks(tab, torch.tensor([0, 1], dtype=torch.int32),
-                                     zero).tolist() == [2, 0]
-    with pytest.raises(ValueError, match=f"flow order '{EIGHT}'.* read 1 "):
-        port_fp.flow_pairhmm_pairs(tab, torch.tensor([0, 1], dtype=torch.int32), zero)
+    assert port_fp.rule_broken_pairs(tab, ri, hi).tolist() == (hi == 1).tolist()
+    _close_to_jax(port_fp.flow_pairhmm_pairs(tab, ri, hi).numpy(), _jax_dense(jh, jr, ri, hi))
+    # read 1 in the 8-letter order, against haplotype 0 alone
+    jr[1] = jax_flow.FlowBasedRead(*read_specs[1][:2], EIGHT, tp=read_specs[1][2])
+    pr[1] = port_flow.FlowBasedRead(*read_specs[1][:2], EIGHT, tp=read_specs[1][2])
+    tab = port_fp.pack_flow_tables(ph[:1], pr, "cpu")
+    r2, h2 = torch.tensor([0, 1], dtype=torch.int32), torch.zeros(2, dtype=torch.int32)
+    assert port_fp.coset_rule_breaks(tab, r2, h2).tolist() == [2, 0]
+    assert port_fp.rule_broken_pairs(tab, r2, h2).tolist() == [False, True]
+    _close_to_jax(port_fp.flow_pairhmm_pairs(tab, r2, h2).numpy(),
+                  _jax_dense(jh[:1], jr, r2, h2))
+    # everything in the 8-letter order: the entry, the CPU route and gatk_tpu agree
     jh = [jax_flow.FlowBasedHaplotype(h, EIGHT) for h in hap_bases]
     jr = [jax_flow.FlowBasedRead(b, q, EIGHT, tp=tp) for b, q, tp in read_specs]
     ph = [port_flow.FlowBasedHaplotype(h, EIGHT) for h in hap_bases]
     pr = [port_flow.FlowBasedRead(b, q, EIGHT, tp=tp) for b, q, tp in read_specs]
     want = jax_fp.compute_flow_likelihood_matrix(jh, jr)
     got = port_fp.compute_flow_likelihood_matrix(ph, pr, device="cpu")
-    fin = np.isfinite(want)
-    assert np.array_equal(fin, np.isfinite(got)) and fin.any()
-    assert np.abs(got[fin] - want[fin]).max() <= BATCH_TOL
+    _close_to_jax(got, want)
+    tab = port_fp.pack_flow_tables(ph, pr, "cpu")
+    assert port_fp.rule_broken_pairs(tab, ri, hi).all()
+    _close_to_jax(port_fp.flow_pairhmm_pairs(tab, ri, hi).numpy(), want.reshape(-1))
 
 
 @pytest.mark.parametrize("seed,read_lens,hap_lens", [(c[0], c[1], c[2]) for c in CASES])
@@ -346,3 +372,53 @@ def test_ground_truth_reads_builder_identical_to_jax(flow_sample, tmp_path):
              "--paternal-ref", flow_sample["fasta"], "--output-csv", out]) == 0
         outs.append(open(out, "rb").read())
     assert outs[0] == outs[1] and outs[0].count(b"\n") > 100
+
+
+@pytest.fixture(scope="module")
+def flow_haplotypes(flow_sample, tmp_path_factory):
+    """The reference's and the planted allele's window around the flow
+    sample's first two variants, as a haplotypes FASTA."""
+    path = str(tmp_path_factory.mktemp("haps") / "haps.fa")
+    synthetic.write_flow_haplotypes(path, flow_sample["fasta"], flow_sample["contig"],
+                                    flow_sample["variants"], n_variants=2, seed=0)
+    return path
+
+
+@pytest.mark.parametrize("order", ["TGCA", EIGHT])
+def test_flow_align_reads_to_haplotypes_identical_to_jax(flow_sample, flow_haplotypes, tmp_path,
+                                                         order):
+    """FlowPairHMMAlignReadsToHaplotypes --device cpu writes gatk_tpu's TSV, in
+    HaplotypeCaller's flow order and in one that breaks the coset rule: the
+    same header, reads and -inf cells, and every log10 likelihood within one
+    step of its 4th decimal (the tool prints 4). Not byte for byte: the port's
+    dense scan rounds its float32 sums and log10 otherwise than XLA's, so a
+    value near a rounding edge prints one step apart (ROADMAP section 3)."""
+    outs = []
+    for registry, extra in ((JAX_TOOLS, []), (port_cli.TOOL_REGISTRY, ["--device", "cpu"])):
+        out = str(tmp_path / f"m{len(outs)}.tsv")
+        assert registry["FlowPairHMMAlignReadsToHaplotypes"](
+            ["-I", flow_sample["bam"], "-H", flow_haplotypes, "-O", out, "--flow-order", order,
+             *extra]) == 0
+        outs.append([ln.split("\t") for ln in open(out).read().splitlines()])
+    want, got = outs
+    assert len(got) == 1 + flow_sample["n_reads"] and got[0] == want[0] and len(got[0]) == 5
+    assert [r[0] for r in got] == [r[0] for r in want]
+    w = np.array([r[1:] for r in want[1:]], dtype=float)
+    g = np.array([r[1:] for r in got[1:]], dtype=float)
+    fin = np.isfinite(w)
+    assert np.array_equal(fin, np.isfinite(g)) and fin.all()
+    assert np.abs(g - w).max() <= PRINTED_TOL
+
+
+def test_flow_align_reads_to_haplotypes_on_cuda_raises_without_a_card(
+        flow_sample, flow_haplotypes, tmp_path, monkeypatch):
+    """Without --device cpu the tool asks for the card, and without one it
+    raises before it reads its inputs; it does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(devices, "_DEFAULT_DEVICE", torch.device("cuda"))
+    argv = ["FlowPairHMMAlignReadsToHaplotypes", "-I", flow_sample["bam"], "-H", flow_haplotypes,
+            "-O", str(tmp_path / "m.tsv")]
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_cli.main(argv + extra)
+    assert not (tmp_path / "m.tsv").exists()

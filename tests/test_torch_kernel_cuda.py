@@ -1,5 +1,6 @@
 """The hand-written kernels (gatk_tpu_torch/csrc/pairhmm_fwd.cu,
-csrc/pairhmm_matrix.cu, csrc/cnv_hmm.cu and csrc/flow_pairhmm.cu) on the card.
+csrc/pairhmm_matrix.cu, csrc/cnv_hmm.cu, csrc/flow_pairhmm.cu and
+csrc/flow_pairhmm_dense.cu) on the card.
 
 Every test here needs a CUDA device: the kernels have no CPU mode, so without a
 card they skip. The file imports neither jax nor gatk_tpu, so it also runs where
@@ -614,17 +615,85 @@ def test_flow_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                                                    device=cuda_device)), ri, hi * 0)
 
 
-def test_flow_entry_rejects_an_order_that_is_not_4_periodic(cuda_device):
+def _off_rule_tables(seed, read_lens, hap_lens, device, order="TGCATGAC", hap_only=False):
+    """_flow_tables with every haplotype, and unless `hap_only` every read, in
+    a flow order that does not repeat with period 4."""
+    from gatk_tpu_torch.ops import flow, flow_pairhmm
+    from gatk_tpu_torch.utils import synthetic
+
+    hap_bases, read_specs = synthetic.flow_batch(seed, read_lens, hap_lens)
+    haps = [flow.FlowBasedHaplotype(h, order) for h in hap_bases]
+    reads = [flow.FlowBasedRead(b, q, "TGCA" if hap_only else order, tp=tp)
+             for b, q, tp in read_specs]
+    tab = flow_pairhmm.pack_flow_tables(haps, reads, device)
+    nh = len(haps)
+    idx = torch.arange(len(reads) * nh, dtype=torch.int32, device=device)
+    return tab, idx // nh, idx % nh
+
+
+@pytest.mark.parametrize("seed,read_lens,hap_lens,order,hap_only", [
+    (8, (80, 120), (90, 110), "TGCATGAC", True),
+    (9, (40, 7, 120, 200, 31), (60, 250, 333, 101), "TGCATGAC", False),
+    (10, (1, 2, 3, 5), (1, 2, 4, 9), "ACGTTGCA", False),  # tiny reads and haplotypes
+    (11, (200, 150, 90), (240, 260, 230), "TGCATGAC", False),  # the flow phase's widths
+    (12, (60, 150), (900, 40), "ACGTACTG", True),  # W over 1,000
+    (13, (60,), (4500,), "TGCATGAC", True),  # Hp over 6,447: the state in device memory
+])
+def test_flow_dense_kernel_matches_plain(cuda_device, seed, read_lens, hap_lens, order, hap_only):
+    """The dense kernel against its plain version (gatk_tpu's dense scan on the
+    gathered prior) on pairs whose flow orders break the coset rule (but for
+    the tiny reads and haplotypes, whose few flows can keep it)."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    tab, ri, hi = _off_rule_tables(seed, read_lens, hap_lens, cuda_device, order, hap_only)
+    smem = _kernels.library("flow_pairhmm_dense").flow_pairhmm_dense_smem(tab["hkey"].shape[1])
+    assert (smem > _kernels.FLOW_MAX_SMEM) == (seed == 13)
+    broken = flow_pairhmm.rule_broken_pairs(tab, ri, hi)
+    assert broken.any() and (seed == 10 or broken.all())
+    got = _kernels.flow_pairhmm_dense(tab, ri, hi)
+    _flow_close(got, _flow_dense(tab, ri, hi))
+    assert torch.isfinite(got).any()
+
+
+@pytest.mark.parametrize("Hp,in_smem", [(6447, True), (6448, False), (6451, False)])
+def test_flow_dense_kernel_at_the_shared_memory_edge(cuda_device, Hp, in_smem):
+    """The dense kernel on tables widened to Hp haplotype flows (columns that
+    match no read flow, as pack_flow_tables pads them) on either side of the
+    widest state that shared memory holds beside the kernel's reductions: it
+    launches and gives its plain version's result on both routes."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    tab, ri, hi = _off_rule_tables(14, (60, 90), (300, 120), cuda_device)
+    pad = Hp - tab["hkey"].shape[1]
+    tab["hkey"] = torch.nn.functional.pad(tab["hkey"], (0, pad))
+    tab["hfo"] = torch.nn.functional.pad(tab["hfo"], (0, pad), value=flow_pairhmm.HAP_PAD)
+    smem = _kernels.library("flow_pairhmm_dense").flow_pairhmm_dense_smem(Hp)
+    assert (smem <= _kernels.FLOW_MAX_SMEM) == in_smem
+    got = _kernels.flow_pairhmm_dense(tab, ri, hi)
+    _flow_close(got, _flow_dense(tab, ri, hi))
+    assert torch.isfinite(got).all()
+
+
+def test_flow_entry_scores_an_order_that_is_not_4_periodic(cuda_device):
     """Haplotype 1 in an 8-letter flow order that does not repeat with period
-    4: the kernel flags it as coset_rule_breaks does, and the entry raises
-    ValueError naming the order; the pairs of haplotype 0 alone pass."""
+    4: the coset kernel flags it as coset_rule_breaks does, and the entry
+    scores the pairs of haplotype 1 with the dense kernel (one launch, counted)
+    and the others with the coset kernel: the dense plain version's result on
+    the first, the coset plain version's on the others."""
     from gatk_tpu_torch.ops import _kernels, flow_pairhmm
 
     tab, ri, hi = _flow_tables(8, (80, 120), (90, 110), cuda_device, hap_order="TGCATGAC")
     _, bad = _kernels.flow_pairhmm(tab, ri, hi)
     assert bad.tolist() == flow_pairhmm.coset_rule_breaks(tab, ri, hi).tolist() == [0, 2]
-    with pytest.raises(ValueError, match="flow order 'TGCATGAC'.* haplotype 1 "):
-        flow_pairhmm.flow_pairhmm_pairs(tab, ri, hi)
+    entry = flow_pairhmm.flow_pairhmm_pairs
+    launches, dense, dense_pairs = entry.launches, entry.dense.launches, entry.dense.pairs
+    got = entry(tab, ri, hi)
+    assert entry.launches == launches + 1
+    assert (entry.dense.launches, entry.dense.pairs) == (dense + 1, dense_pairs + 2)
+    broken = hi == 1
+    _flow_close(got[broken], _flow_dense(tab, ri[broken], hi[broken]))
+    _flow_close(got[~broken], flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri[~broken], hi[~broken]))
     keep = hi == 0
-    got = flow_pairhmm.flow_pairhmm_pairs(tab, ri[keep], hi[keep])
+    got = entry(tab, ri[keep], hi[keep])
+    assert entry.dense.launches == dense + 1
     _flow_close(got, flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri[keep], hi[keep]))
