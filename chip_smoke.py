@@ -2,6 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (gatk_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dense-turns build/old/flow_pairhmm_dense.cu
+
+The second form runs only the device phase and the postcall phase's dense
+launch, and times the dense flow kernel against the earlier one of that
+source (an earlier commit's csrc/flow_pairhmm_dense.cu, written there with
+git show) in turns: earlier, current, current, earlier; then the postcall
+phase's wide case, its device route timed in turns with a grid whose state
+stays in the L2 cache.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card, its power limit, the kernel builds, the native host libraries
@@ -81,8 +89,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
            x haplotypes, a profiled second run (idle share), the largest launch
            held against both plain versions (the coset lattice's and the dense
            scan's) and timed beside its bound, its longest pair's rows and the
-           microseconds a row; the same for the pairs of the earlier dense
-           kernel's largest launch (FLOW_DENSE_LARGEST), where the run makes them
+           microseconds a row, and the dense kernel on its pairs within 1e-4
+           of the coset plain version, timed in turns with the coset kernel;
+           the same for the pairs of the earlier dense kernel's largest launch
+           (FLOW_DENSE_LARGEST), where the run makes them
   vqsr     a sites-only callset (utils/synthetic.write_callset: one 20 Mb
            contig, 18,000 SNVs and 2,000 indels, 80 % true sites, the seven
            annotations drawn apart, a truth VCF of 60 % of the true sites, a
@@ -98,12 +108,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
            planted windows (300-400 bp) of its first 4 variants: one launch of
            the coset kernel over 27,200 pairs, within 1e-4 of its plain
            version on the card (equal -inf sets), the TSV equal to the kernel's
-           values at 4 decimals, timed beside its bound; the same tool with
+           values at 4 decimals, timed beside its bound, and the dense kernel
+           on its pairs checked and timed in turns with it; the same tool with
            --flow-order TGCATGAC (not 4-periodic) on the reads of chrM:1-2000
            (PrintReads -L): one launch of the dense kernel over every pair,
            within 1e-4 of gatk_tpu's dense scan on the card
-           (flow_pairhmm_dense_plain), timed beside its plain version and its
-           bound. Then the post-calling chain on the vqsr phase's callset:
+           (flow_pairhmm_dense_plain), the TSV equal to its values at 4
+           decimals, timed beside its plain version, its bound (the cells of
+           its live lattices alone) and the earlier dense count (each pair's
+           own columns of all four lattices), with its state route; the
+           same reads against the sample's whole contig as one haplotype
+           (16,569 bp, 25,036 flows in TGCA, past the width the coset
+           kernel's shared memory holds): one launch of the dense kernel
+           over every pair and none of the coset kernel, within 1e-4 of both
+           plain versions on the card, the TSV equal to its values at 4
+           decimals, timed beside its bounds, with its state route. Then the
+           post-calling chain on the vqsr phase's callset:
            SelectVariants --select-type-to-include SNP (exactly the SNVs) and
            -select "QD > 2.0" (exactly the records whose INFO QD is above 2);
            VariantFiltration with GATK's six SNP hard filters (FILTER names
@@ -251,7 +271,9 @@ def read_counts():
 
 def _pairs(counts):
     """Pairs scored, summed over the PairHMM entries (the flow PairHMM's too;
-    its dense kernel scores again pairs the coset kernel's launch held)."""
+    its dense kernel scores again pairs the coset kernel's launch held,
+    except past the coset kernel's width, where no genotyped region's
+    haplotypes reach)."""
     return sum(c.get("pairs", 0) for name, c in counts.items() if name != "flow_pairhmm_dense")
 
 
@@ -1045,21 +1067,32 @@ def _flow_rows_and_bytes(tab, ri, hi):
 
 
 def _flow_dense_bound(tab, ri, hi):
-    """The dense kernel's bound on these pairs: of each row a pair needs, the
-    4 ceil((hlen + 5) / 4) columns its result depends on (past them the prior
-    is 0 and M = I = 0; D's tail there enters only the row's scale, which the
-    result does not depend on but for rounding), FLOW_DENSE_FLOPS_PER_CELL
-    operations a cell; the bytes of _flow_rows_and_bytes; the output written
-    once. Also the cells the kernel walks, every one of the Wp columns of the
-    tables' width a row."""
+    """The dense kernel's bound on these pairs: the cells of the live lattices
+    alone (live_cells; the lattices row 0 does not seed are exactly 0, so the
+    function needs none of their cells): of each row a pair needs,
+    ceil((hlen + 5) / 4) cells of each lattice its row 0 seeds
+    (ops/flow_pairhmm.live_residues), at FLOW_FLOPS_PER_CELL operations a cell
+    as _flow_bound counts the coset kernel's; the bytes of
+    _flow_rows_and_bytes; the output written once. Beside it, as
+    dense_count_bound_ms, the count of the earlier dense kernel's rows (before
+    the live lattices were found): of each row a pair needs, the 4
+    ceil((hlen + 5) / 4) columns of all four lattices,
+    FLOW_DENSE_FLOPS_PER_CELL operations a cell, the same bytes. Also the
+    cells an every-column walk of the tables' width would take, Wp a row."""
     from gatk_tpu_torch.ops import flow_pairhmm
 
     F = flow_pairhmm.FLOW_SIZE
     Wp = -(-(tab["hkey"].shape[1] + 1 + F) // F) * F
     rows, in_bytes = _flow_rows_and_bytes(tab, ri, hi)
-    cells = int((rows * F * ((tab["hlen"].long()[hi.long()] + 2 * F) // F)).sum().item())
-    return dict(_bound(cells, in_bytes, 4 * ri.numel(), FLOW_DENSE_FLOPS_PER_CELL),
-                rows=int(rows.max().item()), Wp=Wp, walked_cells=int(rows.sum().item()) * Wp)
+    G = (tab["hlen"].long()[hi.long()] + 2 * F) // F
+    cells = int((rows * F * G).sum().item())
+    lattices = flow_pairhmm.live_residues(tab, ri, hi).sum(dim=1)
+    live_cells = int((rows * lattices * G).sum().item())
+    dense = _bound(cells, in_bytes, 4 * ri.numel(), FLOW_DENSE_FLOPS_PER_CELL)
+    return dict(_bound(live_cells, in_bytes, 4 * ri.numel(), FLOW_FLOPS_PER_CELL),
+                rows=int(rows.max().item()), Wp=Wp, walked_cells=int(rows.sum().item()) * Wp,
+                tasks=int(lattices.sum().item()), live_cells=live_cells, dense_cells=cells,
+                dense_count_bound_ms=dense["bound_ms"], dense_count_bound_by=dense["bound_by"])
 
 
 def _flow_err(got, want, what):
@@ -1074,12 +1107,35 @@ def _flow_err(got, want, what):
     return err
 
 
-def _flow_case(args, what, plain_reps=3):
+def _coset_and_dense(tab, ri, hi, want, what):
+    """The dense kernel on pairs that keep the coset rule, where its one live
+    lattice a pair is the coset kernel's: within KERNEL_TOL of the coset plain
+    version's values `want`, and the two kernels timed in turns on the same
+    pairs (coset, dense, dense, coset; each a median of 30 CUDA-event
+    timings)."""
+    from gatk_tpu_torch.ops import _kernels
+
+    err = _flow_err(_kernels.flow_pairhmm_dense(tab, ri, hi), want, f"{what} (dense kernel)")
+    runs = []
+    for name in ("coset", "dense", "dense", "coset"):
+        fn = ((lambda: _kernels.flow_pairhmm(tab, ri, hi)) if name == "coset"
+              else (lambda: _kernels.flow_pairhmm_dense(tab, ri, hi)))
+        runs.append((name, median_ms(fn, reps=30, warmup=3)))
+    coset = [ms for name, ms in runs if name == "coset"]
+    dense = [ms for name, ms in runs if name == "dense"]
+    return dict(order=[name for name, _ in runs], coset_ms=coset, dense_ms=dense,
+                dense_over_coset=float(np.mean(dense) / np.mean(coset)),
+                dense_max_abs_err=err, **_dense_layout(tab, ri))
+
+
+def _flow_case(args, what, plain_reps=3, with_dense=False):
     """The flow kernel against both plain versions on one launch's inputs: the
     coset lattice's (flow_pairhmm_pairs_plain) and gatk_tpu's dense scan
     (flow_pairhmm_batch_plain on the gathered prior); equal -inf sets, finite
     values within KERNEL_TOL, no read or haplotype flagged. Timed beside both,
-    its bound, the rows of its longest pair and the microseconds a row."""
+    its bound, the rows of its longest pair and the microseconds a row. With
+    `with_dense`, also the dense kernel on the same pairs, checked and timed
+    in turns with the coset kernel (_coset_and_dense)."""
     from gatk_tpu_torch.ops import _kernels, flow_pairhmm
 
     tab, ri, hi = args
@@ -1101,13 +1157,16 @@ def _flow_case(args, what, plain_reps=3):
     bound = _flow_bound(tab, ri, hi)
     NR, Rp, T1 = tab["tables"].shape
     Hp = tab["hkey"].shape[1]
-    return dict(case=what, pairs=ri.numel(), reads=NR, haplotypes=tab["hkey"].shape[0], Rp=Rp,
-                Hp=Hp, W=Hp + 1 + flow_pairhmm.FLOW_SIZE, T1=T1,
-                finite=int(torch.isfinite(want).sum()), max_abs_err=max(err, err_dense),
-                max_abs_err_plain=err, max_abs_err_dense=err_dense, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, dense_plain_ms=dense_ms,
-                us_per_row=kernel_ms * 1e3 / bound["rows"],
-                useful_gcups=bound["useful_cells"] / kernel_ms / 1e6, **bound)
+    res = dict(case=what, pairs=ri.numel(), reads=NR, haplotypes=tab["hkey"].shape[0], Rp=Rp,
+               Hp=Hp, W=Hp + 1 + flow_pairhmm.FLOW_SIZE, T1=T1,
+               finite=int(torch.isfinite(want).sum()), max_abs_err=max(err, err_dense),
+               max_abs_err_plain=err, max_abs_err_dense=err_dense, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, dense_plain_ms=dense_ms,
+               us_per_row=kernel_ms * 1e3 / bound["rows"],
+               useful_gcups=bound["useful_cells"] / kernel_ms / 1e6, **bound)
+    if with_dense:
+        res["dense_kernel"] = _coset_and_dense(tab, ri, hi, want, what)
+    return res
 
 
 def phase_flow(tmp):
@@ -1141,7 +1200,7 @@ def phase_flow(tmp):
                         kernels=dict(kernel=["flow_pairhmm_kernel"]))
     with open(out, "rb") as a, open(out + ".2", "rb") as b:
         check(a.read() == b.read(), "a second FlowBasedHMM run wrote a different VCF")
-    largest = _flow_case(kept["args"], "FlowBasedHMM's largest launch")
+    largest = _flow_case(kept["args"], "FlowBasedHMM's largest launch", with_dense=True)
     dense_largest = (_flow_case(kept["dense"], "the dense kernel's largest launch's pairs")
                      if kept["dense"] else None)
     res = dict(phase="flow", contig_len=sample["length"], reads=sample["n_reads"],
@@ -1363,14 +1422,10 @@ def _printed(got, n_haps):
     return [[f"{x:.4f}" for x in row] for row in vals]
 
 
-def _postcall_flow(tmp, sample):
-    """FlowPairHMMAlignReadsToHaplotypes --device cuda on every read of the flow
-    sample against the reference and planted windows of its first
-    POSTCALL_HAPLOTYPES variants (one launch of the coset kernel); then with
-    the flow order OFF_RULE_ORDER on the reads of OFF_RULE_WINDOW (the dense
-    kernel). Each launch held against its plain version on the card, the TSV
-    against the kernel's values as the tool prints them, and timed."""
-    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+def _postcall_haplotypes(tmp, sample):
+    """The directory of the postcall flow runs and the haplotypes FASTA of the
+    reference and planted windows of the sample's first POSTCALL_HAPLOTYPES
+    variants: (dir, path, names)."""
     from gatk_tpu_torch.utils import synthetic
 
     d = os.path.join(tmp, "postcall_flow")
@@ -1379,6 +1434,21 @@ def _postcall_flow(tmp, sample):
     names = synthetic.write_flow_haplotypes(haps, sample["fasta"], sample["contig"],
                                             sample["variants"], n_variants=POSTCALL_HAPLOTYPES,
                                             seed=0)
+    return d, haps, names
+
+
+def _postcall_flow(tmp, sample):
+    """FlowPairHMMAlignReadsToHaplotypes --device cuda on every read of the flow
+    sample against the reference and planted windows of its first
+    POSTCALL_HAPLOTYPES variants (one launch of the coset kernel); then with
+    the flow order OFF_RULE_ORDER on the reads of OFF_RULE_WINDOW (the dense
+    kernel); then on those reads against the sample's whole contig in its own
+    order (past the coset kernel's width: the dense kernel alone). Each launch
+    held against its plain versions on the card, the TSV against the kernel's
+    values as the tool prints them, and timed."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    d, haps, names = _postcall_haplotypes(tmp, sample)
     out = {}
     tsv = os.path.join(d, "matrix.tsv")
     kept = {}
@@ -1409,30 +1479,65 @@ def _postcall_flow(tmp, sample):
                         haplotypes=len(names), Rp=Rp, Hp=tab["hkey"].shape[1], T1=T1,
                         finite=int(torch.isfinite(want).sum()), max_abs_err=err,
                         kernel_ms=kernel_ms, plain_ms=plain_ms,
-                        us_per_row=kernel_ms * 1e3 / bound["rows"], **bound)
+                        us_per_row=kernel_ms * 1e3 / bound["rows"], **bound,
+                        dense_kernel=_coset_and_dense(tab, ri, hi, want,
+                                                      "FlowPairHMMAlignReadsToHaplotypes' launch"))
     del tab, ri, hi, got, want
 
+    window, print_reads_s = _off_rule_window(d, sample)
+    out["dense"] = dict(_postcall_dense(d, window, haps, names), print_reads_s=print_reads_s)
+    out["wide"] = _postcall_wide(d, window, sample)
+    return out
+
+
+def _off_rule_window(d, sample):
+    """The sample's reads of OFF_RULE_WINDOW (PrintReads -L): (BAM path, s)."""
     window = os.path.join(d, "window.bam")
-    print_reads_s, _, _ = _run_tool(["PrintReads", "-I", sample["bam"], "-O", window,
-                                     "-L", OFF_RULE_WINDOW])
-    tsv2 = os.path.join(d, "matrix_off_rule.tsv")
+    seconds, _, _ = _run_tool(["PrintReads", "-I", sample["bam"], "-O", window,
+                               "-L", OFF_RULE_WINDOW])
+    return window, seconds
+
+
+def _dense_layout(tab, ri):
+    """The dense kernel's state route for these tables (flow_pairhmm_dense_layout)
+    and, on the device route, the resident warps of its grid."""
+    from gatk_tpu_torch.ops import _kernels
+
+    Hp, T1 = tab["hkey"].shape[1], tab["tables"].shape[2]
+    route, warps, smem = _kernels.flow_pairhmm_dense_layout(Hp, T1)
+    slots = _kernels.flow_pairhmm_dense_slots(ri.device, ri.numel()) if route == "device" else None
+    return dict(route=route, warps_a_block=warps, smem_bytes=smem, slots=slots)
+
+
+def _postcall_dense(d, window, haps, names, old_dense=None):
+    """FlowPairHMMAlignReadsToHaplotypes --device cuda --flow-order OFF_RULE_ORDER
+    on the reads of `window` against the haplotypes: one launch of the dense
+    kernel over every pair (beside one of the coset kernel, which flags the
+    order), within KERNEL_TOL of gatk_tpu's dense scan on the card
+    (flow_pairhmm_dense_plain), the TSV equal to the kernel's values at 4
+    decimals; timed beside its plain version and its bounds. With
+    `old_dense`, the source of an earlier dense kernel, also the two kernels
+    in turns on the launch's pairs (_dense_in_turns)."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    tsv = os.path.join(d, "matrix_off_rule.tsv")
     kept = {}
     with keeping_outputs(_kernels, "flow_pairhmm_dense", kept):
-        wall2, counts2, _ = _run_tool(["FlowPairHMMAlignReadsToHaplotypes", "-I", window,
-                                       "-H", haps, "-O", tsv2, "--device", "cuda",
-                                       "--flow-order", OFF_RULE_ORDER])
-    dense = counts2["flow_pairhmm_dense"]
-    check(dense["launches"] == 1 and counts2["flow_pairhmm"]["launches"] == 1,
-          f"--flow-order {OFF_RULE_ORDER}: launches {counts2}, not one of each flow kernel")
+        wall, counts, _ = _run_tool(["FlowPairHMMAlignReadsToHaplotypes", "-I", window,
+                                     "-H", haps, "-O", tsv, "--device", "cuda",
+                                     "--flow-order", OFF_RULE_ORDER])
+    dense = counts["flow_pairhmm_dense"]
+    check(dense["launches"] == 1 and counts["flow_pairhmm"]["launches"] == 1,
+          f"--flow-order {OFF_RULE_ORDER}: launches {counts}, not one of each flow kernel")
     (tab, ri, hi), _ = kept["flow_pairhmm_dense"][0]
-    header, reads, cells = _tsv_matrix(tsv2)
+    header, reads, cells = _tsv_matrix(tsv)
     check(dense["pairs"] == ri.numel() == len(reads) * len(names) > 0,
           f"--flow-order {OFF_RULE_ORDER}: the dense kernel scored {dense['pairs']} of "
           f"{len(reads)} reads x {len(names)} haplotypes")
     got = _kernels.flow_pairhmm_dense(tab, ri, hi)
     want = flow_pairhmm.flow_pairhmm_dense_plain(tab, ri, hi)
     torch.cuda.synchronize()
-    err2 = _flow_err(got, want, f"the dense kernel (--flow-order {OFF_RULE_ORDER})")
+    err = _flow_err(got, want, f"the dense kernel (--flow-order {OFF_RULE_ORDER})")
     check(cells == _printed(got, len(names)),
           f"--flow-order {OFF_RULE_ORDER}: the TSV is not the dense kernel's matrix at 4 decimals")
     kernel_ms = median_ms(lambda: _kernels.flow_pairhmm_dense(tab, ri, hi), reps=30, warmup=3)
@@ -1440,13 +1545,172 @@ def _postcall_flow(tmp, sample):
                          warmup=0)
     bound = _flow_dense_bound(tab, ri, hi)
     NR, Rp, T1 = tab["tables"].shape
-    out["dense"] = dict(tool_s=wall2, print_reads_s=print_reads_s, counts=counts2,
-                        pairs=ri.numel(), reads=NR, haplotypes=len(names), Rp=Rp,
-                        Hp=tab["hkey"].shape[1], T1=T1,
-                        finite=int(torch.isfinite(want).sum()), max_abs_err=err2,
-                        kernel_ms=kernel_ms, plain_ms=plain_ms,
-                        us_per_row=kernel_ms * 1e3 / bound["rows"], **bound)
+    res = dict(tool_s=wall, counts=counts, pairs=ri.numel(), reads=NR, haplotypes=len(names),
+               Rp=Rp, Hp=tab["hkey"].shape[1], T1=T1, finite=int(torch.isfinite(want).sum()),
+               max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               us_per_row=kernel_ms * 1e3 / bound["rows"], **_dense_layout(tab, ri), **bound)
+    if old_dense:
+        res["turns"] = _dense_in_turns(tab, ri, hi, old_dense)
+    return res
+
+
+def _postcall_wide(d, window, sample, l2_turns=False):
+    """FlowPairHMMAlignReadsToHaplotypes --device cuda on the reads of `window`
+    against the sample's whole contig as one haplotype (its FASTA: 16,569 bp,
+    25,036 flows in TGCA), past the width whose coset state fits shared
+    memory: the entry makes one launch of the dense kernel over every pair and
+    none of the coset kernel; the kernel within KERNEL_TOL of both plain
+    versions on the card (the coset lattice's and gatk_tpu's dense scan), the
+    TSV equal to its values at 4 decimals; timed beside its bounds, with its
+    state route. With `l2_turns`, also timed in turns with a grid whose
+    state stays in the L2 cache (_l2_resident_turns)."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    tsv = os.path.join(d, "matrix_wide.tsv")
+    kept = {}
+    with keeping_outputs(_kernels, "flow_pairhmm_dense", kept):
+        wall, counts, _ = _run_tool(["FlowPairHMMAlignReadsToHaplotypes", "-I", window,
+                                     "-H", sample["fasta"], "-O", tsv, "--device", "cuda"])
+    dense = counts["flow_pairhmm_dense"]
+    check(dense["launches"] == 1 and counts["flow_pairhmm"]["launches"] == 0,
+          f"the whole contig as a haplotype: launches {counts}, not one of the dense kernel alone")
+    (tab, ri, hi), _ = kept["flow_pairhmm_dense"][0]
+    header, reads, cells = _tsv_matrix(tsv)
+    check(header[1:] == [sample["contig"]] and dense["pairs"] == ri.numel() == len(reads) > 0,
+          f"the whole contig as a haplotype: the dense kernel scored {dense['pairs']} of "
+          f"{len(reads)} reads x {header[1:]}")
+    NR, Rp, T1 = tab["tables"].shape
+    Hp = tab["hkey"].shape[1]
+    check(_kernels.flow_pairhmm_smem(Hp, T1) > _kernels.FLOW_MAX_SMEM,
+          f"Hp = {Hp} fits the coset kernel's shared memory")
+    got = _kernels.flow_pairhmm_dense(tab, ri, hi)
+    err = _flow_err(got, flow_pairhmm.flow_pairhmm_pairs_plain(tab, ri, hi),
+                    "the wide dense launch (coset plain version)")
+    t0 = time.perf_counter()
+    want = flow_pairhmm.flow_pairhmm_dense_plain(tab, ri, hi)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err_dense = _flow_err(got, want, "the wide dense launch (dense plain version)")
+    check(cells == _printed(got, 1),
+          "the whole contig as a haplotype: the TSV is not the dense kernel's values at 4 decimals")
+    kernel_ms = median_ms(lambda: _kernels.flow_pairhmm_dense(tab, ri, hi), reps=5, warmup=1)
+    bound = _flow_dense_bound(tab, ri, hi)
+    res = dict(tool_s=wall, counts=counts, pairs=ri.numel(), reads=NR, Rp=Rp, Hp=Hp, T1=T1,
+               finite=int(torch.isfinite(want).sum()), max_abs_err=max(err, err_dense),
+               max_abs_err_plain=err, max_abs_err_dense=err_dense, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, us_per_row=kernel_ms * 1e3 / bound["rows"],
+               **_dense_layout(tab, ri), **bound)
+    if l2_turns:
+        res["l2_turns"] = _l2_resident_turns(tab, ri, hi, got)
+    return res
+
+
+def _l2_resident_turns(tab, ri, hi, want):
+    """The dense kernel's device route on its grid (flow_pairhmm_dense_slots)
+    and on a grid whose warps' state would stay in 3/4 of the L2 cache, in
+    turns (default, L2, L2, default; each a median of 5 CUDA-event timings);
+    the L2 grid's values equal to `want`, the default grid's."""
+    from gatk_tpu_torch.ops import _kernels
+
+    Hp = tab["hkey"].shape[1]
+    l2_slots = max(1, torch.cuda.get_device_properties(ri.device).L2_cache_size * 3 // 4
+                   // _kernels.library("flow_pairhmm_dense").flow_pairhmm_dense_state(Hp))
+    slots = _kernels.flow_pairhmm_dense_slots
+
+    def l2(dev, B):
+        return l2_slots
+
+    runs = []
+    try:
+        for name in ("default", "l2", "l2", "default"):
+            _kernels.flow_pairhmm_dense_slots = slots if name == "default" else l2
+            runs.append((name, median_ms(lambda: _kernels.flow_pairhmm_dense(tab, ri, hi),
+                                         reps=5, warmup=1)))
+        _kernels.flow_pairhmm_dense_slots = l2
+        same = torch.equal(_kernels.flow_pairhmm_dense(tab, ri, hi), want)
+    finally:
+        _kernels.flow_pairhmm_dense_slots = slots
+    check(same, "the dense kernel's values on the L2-resident grid differ from its own grid's")
+    return dict(order=[name for name, _ in runs], slots=slots(ri.device, ri.numel()),
+                l2_slots=l2_slots, default_ms=[ms for name, ms in runs if name == "default"],
+                l2_ms=[ms for name, ms in runs if name == "l2"])
+
+
+def _old_dense_library(source):
+    """An earlier dense flow kernel (a block a pair over every column) built from
+    `source` with the port's nvcc flags into build/old_dense/ and bound by
+    ctypes to its C interface: flow_pairhmm_dense(tables, rfo, trans, rlen,
+    hkey, hfo, hlen, ri, hi, out, scratch, B, NR, Rp, T1, NH, Hp, grid,
+    stream), flow_pairhmm_dense_smem(Hp), flow_pairhmm_dense_state(Hp).
+    Returns (library, its ptxas lines)."""
+    from gatk_tpu_torch.ops import _kernels
+
+    out_dir = os.path.join(ROOT, "build", "old_dense")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libold_dense.so")
+    proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so, source],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(so)
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flow_pairhmm_dense.restype = i
+    lib.flow_pairhmm_dense.argtypes = [vp] * 11 + [i] * 7 + [vp]
+    for name in ("flow_pairhmm_dense_smem", "flow_pairhmm_dense_state"):
+        getattr(lib, name).restype = ll
+        getattr(lib, name).argtypes = [i]
+    log = proc.stdout + proc.stderr
+    return lib, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+
+
+def _old_dense(lib, tab, ri, hi):
+    """One launch of the earlier dense kernel on the current stream."""
+    from gatk_tpu_torch.ops import _kernels
+
+    B = ri.numel()
+    NR, Rp, T1 = tab["tables"].shape
+    NH, Hp = tab["hkey"].shape
+    dev = ri.device
+    if lib.flow_pairhmm_dense_smem(Hp) <= _kernels.FLOW_MAX_SMEM:
+        grid, scratch = B, None
+    else:
+        grid = min(B, 8 * torch.cuda.get_device_properties(dev).multi_processor_count)
+        scratch = torch.empty(grid * lib.flow_pairhmm_dense_state(Hp), dtype=torch.float32,
+                              device=dev)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    ptrs = [tab[name].data_ptr() for name in _kernels.FLOW_TABLES] + [ri.data_ptr(),
+                                                                       hi.data_ptr(),
+                                                                       out.data_ptr()]
+    rc = lib.flow_pairhmm_dense(*ptrs, None if scratch is None else scratch.data_ptr(), B, NR,
+                                Rp, T1, NH, Hp, grid, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc == 0, f"the earlier dense kernel's launch failed: {rc}")
     return out
+
+
+def _dense_in_turns(tab, ri, hi, source):
+    """The dense kernel and the earlier one of `source` on the same pairs, timed
+    in turns in this one process (earlier, current, current, earlier; each a
+    median of 30 CUDA-event timings), with the largest difference of their
+    finite values and whether their -inf sets agree."""
+    from gatk_tpu_torch.ops import _kernels
+
+    lib, ptxas = _old_dense_library(source)
+    old = _old_dense(lib, tab, ri, hi)
+    new = _kernels.flow_pairhmm_dense(tab, ri, hi)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(old)
+    runs = []
+    for name in ("earlier", "current", "current", "earlier"):
+        fn = ((lambda: _old_dense(lib, tab, ri, hi)) if name == "earlier"
+              else (lambda: _kernels.flow_pairhmm_dense(tab, ri, hi)))
+        runs.append((name, median_ms(fn, reps=30, warmup=3)))
+    earlier = [ms for name, ms in runs if name == "earlier"]
+    current = [ms for name, ms in runs if name == "current"]
+    return dict(order=[name for name, _ in runs], ms=[ms for _, ms in runs],
+                earlier_ms=earlier, current_ms=current,
+                speedup=float(np.mean(earlier) / np.mean(current)),
+                same_inf_set=bool(torch.equal(fin, torch.isfinite(new))),
+                max_abs_diff=(new[fin] - old[fin]).abs().max().item() if fin.any() else 0.0,
+                earlier_ptxas=ptxas)
 
 
 def _vcf_sites(path):
@@ -2690,13 +2954,44 @@ def phase_somatic_cnv(dev, tmp):
     return res
 
 
+def dense_turns(source):
+    """Only the dense flow kernel against an earlier one (`source`, that
+    commit's csrc/flow_pairhmm_dense.cu) in turns, on the pairs of the
+    postcall phase's dense launch (FlowPairHMMAlignReadsToHaplotypes
+    --flow-order OFF_RULE_ORDER on the flow sample's reads of
+    OFF_RULE_WINDOW), with the launch's gates; then the postcall phase's wide
+    case with its device route in turns with an L2-resident grid."""
+    from gatk_tpu_torch.utils import synthetic
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        sample = synthetic.write_flow_sample(os.path.join(tmp, "flow"), **FLOW)
+        d, haps, names = _postcall_haplotypes(tmp, sample)
+        window, _ = _off_rule_window(d, sample)
+        emit(dict(phase="dense_turns", source=source,
+                  **_postcall_dense(d, window, haps, names, old_dense=source)))
+        emit(dict(phase="dense_wide_l2", **_postcall_wide(d, window, sample, l2_turns=True)))
+
+
 def main():
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--dense-turns", metavar="SOURCE",
+                   help="run only the device phase and the dense flow kernel against the "
+                        "earlier dense kernel of SOURCE in turns, then the result line")
+    args = p.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
     phase_device()
+    if args.dense_turns:
+        dense_turns(args.dense_turns)
+        print(nvidia_smi_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     k = phase_kernel(dev)
     var = phase_variants(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2735,8 +3030,9 @@ def main():
         ("flow", flow), ("distributed", dist))]
     path_counts += [("distributed_hc", dist["hc_counts"]),
                     ("reads_pipeline_spark", dist["rps_counts"]),
-                    ("postcall", _add_counts(postcall["flow"]["coset"]["counts"],
-                                             postcall["flow"]["dense"]["counts"]))]
+                    ("postcall", _add_counts(_add_counts(postcall["flow"]["coset"]["counts"],
+                                                         postcall["flow"]["dense"]["counts"]),
+                                             postcall["flow"]["wide"]["counts"]))]
 
     def by_path(name):
         return {path: counts[name]["launches"] for path, counts in path_counts
@@ -2798,17 +3094,26 @@ def main():
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], rows=fl["rows"],
         us_per_row=fl["us_per_row"], library_ms=None,
         postcall_launch=dict((k, postcall["flow"]["coset"][k]) for k in (
-            "pairs", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by"))))
-    fd = postcall["flow"]["dense"]
+            "pairs", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "dense_kernel")),
+        dense_kernel_in_turns=fl["dense_kernel"]))
+    fd, fw = postcall["flow"]["dense"], postcall["flow"]["wide"]
     kernels.append(dict(
         name="flow_pairhmm_dense", route="cuda", source=src + "flow_pairhmm_dense.cu",
         replaces="gatk_tpu/ops/flow_pairhmm.py:116 (flow_pairhmm_batch_jax under lax.scan, "
-                 "for flow orders that do not repeat with period 4; not a Pallas kernel)",
-        design="a block a pair over every column, prior gathered in the kernel",
-        launches=fd["counts"]["flow_pairhmm_dense"]["launches"],
-        launches_by_path=by_path("flow_pairhmm_dense"), max_abs_err=fd["max_abs_err"],
-        ms=fd["kernel_ms"], plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
-        bound_by=fd["bound_by"], rows=fd["rows"], us_per_row=fd["us_per_row"], library_ms=None))
+                 "for flow orders that do not repeat with period 4 and haplotypes past the "
+                 "coset kernel's width; not a Pallas kernel)",
+        design="gatk_tpu's dense scan as the sum of each pair's live coset lattices, a warp "
+               "a lattice after a plan on the card, prior gathered in the kernel",
+        launches=by_path("flow_pairhmm_dense")["postcall"],
+        launches_by_path=by_path("flow_pairhmm_dense"),
+        max_abs_err=max(fd["max_abs_err"], fw["max_abs_err"]), ms=fd["kernel_ms"],
+        plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"], bound_by=fd["bound_by"],
+        dense_count_bound_ms=fd["dense_count_bound_ms"], live_cells=fd["live_cells"],
+        state_route=fd["route"], rows=fd["rows"], us_per_row=fd["us_per_row"], library_ms=None,
+        wide_launch=dict((k, fw[k]) for k in (
+            "pairs", "Hp", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "dense_count_bound_ms", "live_cells", "route", "slots"))))
     for kd in kernels:
         kd["max_abs_diff"] = kd["max_abs_err"]
     total_s = time.perf_counter() - t_start

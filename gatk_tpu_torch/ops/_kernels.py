@@ -33,8 +33,10 @@ runs a warp a (read, haplotype) pair over the coset cells of the read's flow
 rows, its prior gathered from the packed tables inside the kernel, its carried
 rows in registers (in the warp's shared memory for the widest haplotypes);
 the dense kernel (csrc/flow_pairhmm_dense.cu, wrapper `flow_pairhmm_dense`)
-runs a block a pair over every column, for the pairs whose flow order breaks
-the coset rule; ops/flow_pairhmm.py holds the plain versions of both.
+runs gatk_tpu's dense scan as the sum of each pair's live coset lattices, a
+warp a lattice after a plan on the card, for the pairs whose flow order breaks
+the coset rule and for haplotypes wider than the coset kernel's shared memory
+holds; ops/flow_pairhmm.py holds the plain versions of both.
 """
 from __future__ import annotations
 
@@ -155,12 +157,15 @@ def _bind_flow_pairhmm(lib):
 
 
 def _bind_flow_pairhmm_dense(lib):
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flow_pairhmm_dense.restype = i
     lib.flow_pairhmm_dense.argtypes = [vp] * 11 + [i] * 7 + [vp]
-    for name in ("flow_pairhmm_dense_state", "flow_pairhmm_dense_smem"):
-        getattr(lib, name).restype = ctypes.c_longlong
-        getattr(lib, name).argtypes = [i]
+    lib.flow_pairhmm_dense_route.restype = i
+    lib.flow_pairhmm_dense_route.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+    lib.flow_pairhmm_dense_state.restype = ll
+    lib.flow_pairhmm_dense_state.argtypes = [i]
+    lib.flow_pairhmm_dense_scratch.restype = ll
+    lib.flow_pairhmm_dense_scratch.argtypes = [i] * 4
 
 
 def plan_groups(rows: torch.Tensor, hlen: torch.Tensor | None = None, hmax: int = 0):
@@ -383,6 +388,26 @@ def cnv_hmm_dependent_steps(T: int, chunk: int = CNV_HMM_CHUNK) -> int:
 
 
 FLOW_MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+FLOW_WARPS = 4  # csrc/flow_pairhmm.cu: kWarps, pairs a block at most
+FLOW_REG_CELLS = 4  # csrc/flow_pairhmm.cu: kRegCells, cells a lane in registers at most
+FLOW_ROW_TAIL = 7  # csrc/flow_pairhmm.cu: kRowTail, floats after a table row
+
+
+def flow_pairhmm_smem(Hp: int, T1: int) -> int:
+    """Bytes of dynamic shared memory a block of the coset kernel needs for
+    tables of Hp haplotype flows and T1 table columns: the mirror of
+    csrc/flow_pairhmm.cu's flow_pairhmm_smem. Two row buffers a warp, and past
+    FLOW_REG_CELLS cells a lane (Hp > 507) the carried state, 11 words of 32
+    lanes a cell; FLOW_WARPS warps a block, fewer where that would pass
+    FLOW_MAX_SMEM, at least one. The coset kernel launches where this is at
+    most FLOW_MAX_SMEM: Hp up to 21,115 flows for T1 <= 9, 20,987 for
+    10 <= T1 <= 185."""
+    n = ((Hp + 8) // 4 + 31) // 32
+    per_warp = 4 * (2 * (T1 + FLOW_ROW_TAIL) + (11 * 32 * n if n > FLOW_REG_CELLS else 0))
+    warps = FLOW_MAX_SMEM // per_warp if per_warp > FLOW_MAX_SMEM // FLOW_WARPS else FLOW_WARPS
+    return per_warp * max(warps, 1)
+
+
 FLOW_TABLES = {"tables": (torch.float32, 3), "rfo": (torch.uint8, 2),
                "trans": (torch.float32, 3), "rlen": (torch.int32, 1),
                "hkey": (torch.int32, 2), "hfo": (torch.uint8, 2), "hlen": (torch.int32, 1)}
@@ -425,7 +450,9 @@ def flow_pairhmm(tab, ri: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor,
     haplotype whose flow bases break the coset rule, 0 where none does
     (ops/flow_pairhmm.coset_rule_breaks). A haplotype of up to 507 flows
     keeps its state in registers; a wider one in shared memory, which holds
-    Hp up to about 21,000 flows."""
+    Hp up to 21,115 flows (flow_pairhmm_smem, its mirror); past that this
+    wrapper raises, and the entry (ops/flow_pairhmm.flow_pairhmm_pairs) sends
+    the call to flow_pairhmm_dense, which takes any width."""
     what = "flow_pairhmm"
     dev, B, NR, Rp, T1, NH, Hp = _check_flow_operands(tab, ri, hi, what)
     _check(T1 < 0xFFFF, what, f"T1 = {T1} table columns: keys must fit 16 bits")
@@ -444,32 +471,60 @@ def flow_pairhmm(tab, ri: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor,
     return out, bad
 
 
+FLOW_DENSE_ROUTES = ("registers", "shared", "device")  # csrc/flow_pairhmm_dense.cu: Route
+FLOW_DENSE_WARPS_PER_SM = 4  # resident warps a multiprocessor on the dense kernel's device route
+
+
+def flow_pairhmm_dense_layout(Hp: int, T1: int) -> tuple[str, int, int]:
+    """Where the dense kernel keeps a task's state for tables of Hp haplotype
+    flows and T1 table columns (csrc/flow_pairhmm_dense.cu), as the library
+    decides it: (route of FLOW_DENSE_ROUTES, tasks a block, bytes of dynamic
+    shared memory a block)."""
+    lib = library("flow_pairhmm_dense")
+    warps, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    route = lib.flow_pairhmm_dense_route(Hp, T1, ctypes.byref(warps), ctypes.byref(smem))
+    return FLOW_DENSE_ROUTES[route], warps.value, smem.value
+
+
+def flow_pairhmm_dense_slots(dev, B: int) -> int:
+    """The warps of the dense kernel's grid on its device route for B pairs:
+    FLOW_DENSE_WARPS_PER_SM a multiprocessor, at most the 4 B tasks the pairs
+    can have. A warp's state there (flow_pairhmm_dense_state: 301 KB at
+    25,036 haplotype flows) is read and written every row, and the row's
+    latency bounds the route: a grid whose state stays in the L2 cache holds
+    one warp a multiprocessor, and runs slower than this one (chip_smoke.py
+    --dense-turns times both in turns)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(4 * B, FLOW_DENSE_WARPS_PER_SM * sms))
+
+
 def flow_pairhmm_dense(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """Launch the dense flow-space PairHMM kernel (csrc/flow_pairhmm_dense.cu)
+    """Launch the dense flow-space PairHMM kernels (csrc/flow_pairhmm_dense.cu)
     on PyTorch's current stream over the pairs (read ri[b], haplotype hi[b])
     of `tab`, the tables and pairs flow_pairhmm takes. Returns (B,) f32 log10
-    likelihoods without waiting: gatk_tpu's dense scan over the W = Hp + 5
-    columns of the tables' haplotype width (ops/flow_pairhmm.py states it;
-    NaN for indices or lengths out of range), for any flow order. A block a
-    pair keeps its 9 x Wp floats of state (Wp = W padded to a multiple of 4)
-    and its reductions in shared memory up to Hp = 6,447 flows; past that the
-    wrapper allocates the state in device memory for 8 blocks an SM, which
-    walk the pairs."""
+    likelihoods without waiting: gatk_tpu's dense scan (ops/flow_pairhmm.py
+    states it; NaN for indices or lengths out of range), for any flow order
+    and any haplotype width, as the sum of each pair's live lattices, a warp
+    a lattice. A lattice's state lives in registers up to Hp = 891
+    haplotype flows, in the warp's shared memory while it fits, and past that
+    in device scratch this wrapper allocates for the resident warps of the
+    grid (flow_pairhmm_dense_slots; flow_pairhmm_dense_layout names the
+    route). The scratch also holds the plan and the lattices' results."""
     what = "flow_pairhmm_dense"
     dev, B, NR, Rp, T1, NH, Hp = _check_flow_operands(tab, ri, hi, what)
+    _check(B < 2 ** 29, what, "operands too large")
+    _check(T1 < 0xFFFF, what, f"T1 = {T1} table columns: keys must fit 16 bits")
     lib = library("flow_pairhmm_dense")
+    route, _, smem = flow_pairhmm_dense_layout(Hp, T1)
+    _check(smem <= FLOW_MAX_SMEM, what,
+           f"T1 = {T1} needs {smem} bytes of shared memory a block, over {FLOW_MAX_SMEM}")
+    slots = flow_pairhmm_dense_slots(dev, B) if route == "device" else 0
+    scratch = torch.empty(lib.flow_pairhmm_dense_scratch(B, Hp, T1, slots), dtype=torch.int32,
+                          device=dev)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    if lib.flow_pairhmm_dense_smem(Hp) <= FLOW_MAX_SMEM:
-        grid, scratch = B, None
-    else:
-        grid = min(B, 8 * torch.cuda.get_device_properties(dev).multi_processor_count)
-        scratch = torch.empty(grid * lib.flow_pairhmm_dense_state(Hp), dtype=torch.float32,
-                              device=dev)
-    tensors = [tab[name] for name in FLOW_TABLES] + [ri, hi, out]
+    tensors = [tab[name] for name in FLOW_TABLES] + [ri, hi, out, scratch]
     with torch.cuda.device(dev):
-        rc = lib.flow_pairhmm_dense(*(t.data_ptr() for t in tensors),
-                                    None if scratch is None else scratch.data_ptr(),
-                                    B, NR, Rp, T1, NH, Hp, grid,
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if_failed(lib, rc, what, f"B={B}, Rp={Rp}, T1={T1}, Hp={Hp}")
+        rc = lib.flow_pairhmm_dense(*(t.data_ptr() for t in tensors), B, NR, Rp, T1, NH, Hp,
+                                    slots, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, rc, what, f"B={B}, Rp={Rp}, T1={T1}, Hp={Hp}, route={route}")
     return out

@@ -28,7 +28,11 @@ repeat with period 4 over four distinct bases (`rule_broken_pairs`); the
 pairs whose read or haplotype breaks that rule (an order such as TGCATGAC)
 go to gatk_tpu's dense scan instead: on the card the hand-written kernel
 csrc/flow_pairhmm_dense.cu (ops/_kernels.flow_pairhmm_dense), on the CPU its
-plain version `flow_pairhmm_dense_plain`. The entry's `launches` and `pairs`
+plain version `flow_pairhmm_dense_plain`. On the card so do all the pairs of
+a call whose haplotype width passes what the coset kernel's shared memory
+holds (ops/_kernels.flow_pairhmm_smem). The dense kernel walks each pair's
+live lattices (`live_residues`) alone; `flow_pairhmm_live_plain` is the
+plain version of that decomposition. The entry's `launches` and `pairs`
 count the coset kernel's launches and the pairs they scored, its
 `dense.launches` and `dense.pairs` the dense kernel's.
 
@@ -325,7 +329,8 @@ def flow_pairhmm_dense_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.T
     """gatk_tpu's dense scan of the pairs (read ri[b], haplotype hi[b]) of
     `tab`: flow_pairhmm_batch_plain on flow_prior, MAX_PRIOR_FLOATS of prior at
     a time (parts of whole pairs). The plain version of
-    csrc/flow_pairhmm_dense.cu, and the CPU route of
+    csrc/flow_pairhmm_dense.cu (which computes it lattice by lattice, as
+    flow_pairhmm_live_plain does), and the CPU route of
     compute_flow_likelihood_matrix."""
     Rp, Hp = tab["rfo"].shape[1], tab["hkey"].shape[1]
     step = max(1, MAX_PRIOR_FLOATS // (Rp * (Hp + 1 + FLOW_SIZE)))
@@ -341,25 +346,43 @@ def flow_pairhmm_pairs_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.T
     """The plain PyTorch version of csrc/flow_pairhmm.cu: (B,) f32 log10
     likelihoods of the pairs (read ri[b], haplotype hi[b]) of `tab`
     (pack_flow_tables), on the coset lattice that GATK's loop and the kernel
-    walk.
-
-    Row k of a pair holds the cells g < G = ceil((hlen + 5) / 4), cell g at DP
-    column 4 g + r_k, r_k = (5 + k + s) mod 4, s the pair's _starting_point
-    (the first of its haplotype's first four flows reading the read's first
-    base, else 0): haplotype flow j = 4 g + r_k - 5, prior
-    tables[ri, k, hkey[hi, j]] where 0 <= j < hlen and the read's and the
-    haplotype's flow bases agree, else 0. M pulls cell g of row k - 1, or
-    g - 1 where r_k = 0; I cell g of row k - 4; D cell g - 1 of its own row;
-    D starts at 1 / max(hlen, 1) in every cell of row -1 and is 0 at cells
-    >= G. The rest is flow_pairhmm_batch_plain's: the row's M + I sum kept at
-    k = clip(rlen - 1, 0, Rp - 1), the carried rows divided by the row's
-    maximum c (1 where c <= 0), log10(c) added to a float32 offset. Where the
-    flow bases keep the coset rule (coset_rule_breaks) the dense version's
-    cells off this lattice are 0, and both give one log10 likelihood up to
-    float32 rounding; the kernel takes each row's c from M and I alone,
-    which changes only the rounding too. A pair whose rlen is outside
-    [0, Rp] or hlen outside [0, Hp] gives NaN, as in the kernel."""
+    walk: flow_pairhmm_lattice_plain at s, the pair's _starting_point (the
+    first of its haplotype's first four flows reading the read's first base,
+    else 0). Where the flow bases keep the coset rule (coset_rule_breaks) the
+    dense version's cells off this lattice are 0, and both give one log10
+    likelihood up to float32 rounding; the kernel takes each row's c from M
+    and I alone, which changes only the rounding too."""
     ri, hi = ri.long(), hi.long()
+    Hp = tab["hfo"].shape[1]
+    if ri.numel() == 0:
+        return torch.zeros(0, dtype=torch.float32, device=tab["tables"].device)
+    H = tab["hlen"][hi].long().clamp(0, Hp)
+    first = torch.arange(min(FLOW_SIZE, Hp), device=ri.device)
+    hits = ((tab["hfo"][hi][:, : len(first)] == tab["rfo"][ri][:, :1])
+            & (first[None, :] < H[:, None]))
+    s = torch.where(hits.any(dim=1), hits.int().argmax(dim=1), 0)
+    return flow_pairhmm_lattice_plain(tab, ri, hi, s)
+
+
+def flow_pairhmm_lattice_plain(tab, ri: torch.Tensor, hi: torch.Tensor,
+                               s: torch.Tensor) -> torch.Tensor:
+    """(B,) f32 log10 likelihoods of the tasks (read ri[b], haplotype hi[b],
+    residue s[b]) of `tab`, each on one (column - row) mod 4 lattice of
+    gatk_tpu's dense scan: the lattice csrc/flow_pairhmm.cu walks for a pair
+    whose _starting_point is s.
+
+    Row k of a task holds the cells g < G = ceil((hlen + 5) / 4), cell g at
+    DP column 4 g + r_k, r_k = (5 + k + s) mod 4: haplotype flow
+    j = 4 g + r_k - 5, prior tables[ri, k, hkey[hi, j]] where 0 <= j < hlen
+    and the read's flow base at k is the haplotype's at j, else 0. M pulls
+    cell g of row k - 1, or g - 1 where r_k = 0; I cell g of row k - 4; D
+    cell g - 1 of its own row; D starts at 1 / max(hlen, 1) in every cell of
+    row -1 and is 0 at cells >= G. The rest is flow_pairhmm_batch_plain's:
+    the row's M + I sum kept at k = clip(rlen - 1, 0, Rp - 1), the carried
+    rows divided by the row's maximum c (1 where c <= 0), log10(c) added to a
+    float32 offset. A task whose rlen is outside [0, Rp] or hlen outside
+    [0, Hp] gives NaN, as in the kernels."""
+    ri, hi, s = ri.long(), hi.long(), s.long()
     B = ri.numel()
     dev = tab["tables"].device
     Rp, Hp = tab["rfo"].shape[1], tab["hfo"].shape[1]
@@ -373,9 +396,6 @@ def flow_pairhmm_pairs_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.T
     g = torch.arange(int(G.max()), device=dev)
     inside = g[None, :] < G[:, None]
     rfo, hfo, hkey = tab["rfo"][ri], tab["hfo"][hi], tab["hkey"][hi].long()
-    first = torch.arange(min(FLOW_SIZE, Hp), device=dev)
-    hits = (hfo[:, : len(first)] == rfo[:, :1]) & (first[None, :] < H[:, None])
-    s = torch.where(hits.any(dim=1), hits.int().argmax(dim=1), 0)
     zeros = torch.zeros((B, len(g)), dtype=torch.float32, device=dev)
     d_prev = (1.0 / H.float().clamp(min=1.0))[:, None].expand(B, len(g))
     m_hist, i_hist = [zeros] * 4, [zeros] * 4
@@ -417,17 +437,69 @@ def flow_pairhmm_pairs_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.T
     return torch.where(out_of_range, torch.full_like(out, math.nan), out)
 
 
+def live_residues(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(B, FLOW_SIZE) bool: which (column - row) mod 4 lattices of pair b's
+    dense scan are live. The dense recurrence never crosses a lattice (M
+    pulls (k - 1, c - 1), I (k - 4, c), D (k, c - 4), row 0's M the initial
+    D at (-1, c - 1)), and a lattice that row 0 does not seed stays exactly
+    0. Row 0 seeds the lattice of residue s (flow_pairhmm_lattice_plain's s)
+    where a haplotype flow f < hlen with f mod 4 = s reads the read's first
+    flow base with a nonzero prior tables[ri, 0, hkey[f]]. Over all of the
+    haplotype's flows: in TGCATGAC, C reads at flows 2 and 7."""
+    ri, hi = ri.long(), hi.long()
+    B = ri.numel()
+    Hp, T1 = tab["hfo"].shape[1], tab["tables"].shape[2]
+    key = tab["hkey"][hi].long()
+    vals = torch.gather(tab["tables"][ri, 0], 1, key.clamp(0, T1 - 1))
+    f = torch.arange(Hp, device=ri.device)
+    seeds = ((f[None, :] < tab["hlen"][hi].long()[:, None])
+             & (tab["hfo"][hi] == tab["rfo"][ri, :1]) & (key >= 0) & (key < T1) & (vals > 0))
+    pad = -Hp % FLOW_SIZE
+    return torch.nn.functional.pad(seeds, (0, pad)).view(B, -1, FLOW_SIZE).any(dim=1)
+
+
+def flow_pairhmm_live_plain(tab, ri: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """gatk_tpu's dense scan of the pairs (read ri[b], haplotype hi[b]) of
+    `tab` as the sum of its live lattices: the structural oracle of
+    csrc/flow_pairhmm_dense.cu, on no route. Each live residue s of a pair
+    (live_residues) is a task of flow_pairhmm_lattice_plain, and the pair's
+    (B,) f32 result is A + log10 sum_s 10^(out_s - A), A = max_s out_s: the
+    row scale of the dense scan is shared by the lattices and cancels, so each
+    task keeps its own. -inf where no lattice is live; NaN where rlen is
+    outside [0, Rp] or hlen outside [0, Hp]. Equal to
+    flow_pairhmm_dense_plain up to float32 rounding."""
+    ri, hi = ri.long(), hi.long()
+    B = ri.numel()
+    Rp, Hp = tab["rfo"].shape[1], tab["hfo"].shape[1]
+    b, s = live_residues(tab, ri, hi).nonzero(as_tuple=True)
+    per = torch.full((B, FLOW_SIZE), -math.inf, dtype=torch.float32, device=ri.device)
+    if b.numel():
+        per[b, s] = flow_pairhmm_lattice_plain(tab, ri[b], hi[b], s)
+    top = per.amax(dim=1, keepdim=True)
+    some = top > -math.inf
+    out = torch.where(some, top + torch.log10(torch.pow(10.0, per - top).sum(1, keepdim=True)),
+                      top).squeeze(1)
+    R, H = tab["rlen"][ri].long(), tab["hlen"][hi].long()
+    out_of_range = (R < 0) | (R > Rp) | (H < 0) | (H > Hp)
+    return torch.where(out_of_range, torch.full_like(out, math.nan), out)
+
+
 class _FlowEntry(_Counted):
     """`flow_pairhmm_pairs(tab, ri, hi)`: tables on a CUDA device launch the
     coset kernel (ops/_kernels.flow_pairhmm) over every pair and, where it
     flags a read or a haplotype that breaks the coset rule, the dense kernel
     (ops/_kernels.flow_pairhmm_dense) over the pairs that hold one
     (rule_broken_pairs), whose results replace the coset kernel's; reading the
-    flags is the one host synchronisation of a call. Tables on the CPU run the
-    plain versions on the same split: flow_pairhmm_pairs_plain and
-    flow_pairhmm_dense_plain. `launches` and `pairs` count the coset kernel's
-    launches and the pairs they scored, `dense.launches` and `dense.pairs` the
-    dense kernel's; the plain versions are not counted."""
+    flags is the one host synchronisation of a call. Where the coset kernel's
+    state would not fit shared memory (ops/_kernels.flow_pairhmm_smem of the
+    tables' width Hp and columns T1 over FLOW_MAX_SMEM: Hp past 21,115 flows)
+    the dense kernel alone scores every pair of the call, in one launch: for
+    a pair that keeps the rule it walks the coset kernel's one lattice.
+    Tables on the CPU run the plain versions on the split of the rule:
+    flow_pairhmm_pairs_plain and flow_pairhmm_dense_plain. `launches` and
+    `pairs` count the coset kernel's launches and the pairs they scored,
+    `dense.launches` and `dense.pairs` the dense kernel's; the plain versions
+    are not counted."""
 
     def __init__(self):
         super().__init__()
@@ -442,6 +514,11 @@ class _FlowEntry(_Counted):
             return out
         from . import _kernels
 
+        Hp, T1 = tab["hkey"].shape[1], tab["tables"].shape[2]
+        if _kernels.flow_pairhmm_smem(Hp, T1) > _kernels.FLOW_MAX_SMEM:
+            out = _kernels.flow_pairhmm_dense(tab, ri, hi)
+            self.dense._count(ri.numel())
+            return out
         out, bad = _kernels.flow_pairhmm(tab, ri, hi)
         self._count(ri.numel())
         if any(bad.tolist()):
@@ -459,7 +536,8 @@ def compute_flow_likelihood_matrix(haps, reads, device=None) -> np.ndarray:
     haplotype on `device` (devices.resolve_device: the port's default unless
     given; raises for CUDA without a card). On a card: one launch of the
     coset kernel over the region (flow_pairhmm_pairs), and one of the dense
-    kernel where a flow order breaks the coset rule. On the CPU: gatk_tpu's
+    kernel where a flow order breaks the coset rule; past the coset kernel's
+    width, one launch of the dense kernel alone. On the CPU: gatk_tpu's
     dense scan (flow_pairhmm_dense_plain), so that the result is gatk_tpu's."""
     pairs = len(reads) * len(haps)
     if not pairs:

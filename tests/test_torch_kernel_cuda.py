@@ -636,8 +636,8 @@ def _off_rule_tables(seed, read_lens, hap_lens, device, order="TGCATGAC", hap_on
     (9, (40, 7, 120, 200, 31), (60, 250, 333, 101), "TGCATGAC", False),
     (10, (1, 2, 3, 5), (1, 2, 4, 9), "ACGTTGCA", False),  # tiny reads and haplotypes
     (11, (200, 150, 90), (240, 260, 230), "TGCATGAC", False),  # the flow phase's widths
-    (12, (60, 150), (900, 40), "ACGTACTG", True),  # W over 1,000
-    (13, (60,), (4500,), "TGCATGAC", True),  # Hp over 6,447: the state in device memory
+    (12, (60, 150), (900, 40), "ACGTACTG", True),  # W over 1,000: the state in shared memory
+    (13, (60,), (4500,), "TGCATGAC", True),  # Hp 7,051: the state in shared memory
 ])
 def test_flow_dense_kernel_matches_plain(cuda_device, seed, read_lens, hap_lens, order, hap_only):
     """The dense kernel against its plain version (gatk_tpu's dense scan on the
@@ -646,8 +646,8 @@ def test_flow_dense_kernel_matches_plain(cuda_device, seed, read_lens, hap_lens,
     from gatk_tpu_torch.ops import _kernels, flow_pairhmm
 
     tab, ri, hi = _off_rule_tables(seed, read_lens, hap_lens, cuda_device, order, hap_only)
-    smem = _kernels.library("flow_pairhmm_dense").flow_pairhmm_dense_smem(tab["hkey"].shape[1])
-    assert (smem > _kernels.FLOW_MAX_SMEM) == (seed == 13)
+    route = _kernels.flow_pairhmm_dense_layout(tab["hkey"].shape[1], tab["tables"].shape[2])[0]
+    assert route == ("shared" if seed in (12, 13) else "registers")
     broken = flow_pairhmm.rule_broken_pairs(tab, ri, hi)
     assert broken.any() and (seed == 10 or broken.all())
     got = _kernels.flow_pairhmm_dense(tab, ri, hi)
@@ -655,23 +655,89 @@ def test_flow_dense_kernel_matches_plain(cuda_device, seed, read_lens, hap_lens,
     assert torch.isfinite(got).any()
 
 
-@pytest.mark.parametrize("Hp,in_smem", [(6447, True), (6448, False), (6451, False)])
-def test_flow_dense_kernel_at_the_shared_memory_edge(cuda_device, Hp, in_smem):
+@pytest.mark.parametrize("Hp,route", [(507, "registers"), (508, "registers"), (891, "registers"),
+                                      (892, "shared"), (19323, "shared"), (19324, "device")])
+def test_flow_dense_kernel_at_the_shared_memory_edge(cuda_device, Hp, route):
     """The dense kernel on tables widened to Hp haplotype flows (columns that
-    match no read flow, as pack_flow_tables pads them) on either side of the
-    widest state that shared memory holds beside the kernel's reductions: it
-    launches and gives its plain version's result on both routes."""
+    match no read flow, as pack_flow_tables pads them) on either side of each
+    edge of its state routes: 4 | 5 and 7 | 8 cells a lane (Hp 507 | 508,
+    where the register route's state grows a cell, and 891 | 892, where it
+    leaves the registers) and the widest state the warp's
+    shared memory holds beside its row buffers at T1 = 8 (19,323 | 19,324):
+    it launches and gives its plain version's result on every route."""
     from gatk_tpu_torch.ops import _kernels, flow_pairhmm
 
     tab, ri, hi = _off_rule_tables(14, (60, 90), (300, 120), cuda_device)
+    assert tab["tables"].shape[2] == 8
     pad = Hp - tab["hkey"].shape[1]
     tab["hkey"] = torch.nn.functional.pad(tab["hkey"], (0, pad))
     tab["hfo"] = torch.nn.functional.pad(tab["hfo"], (0, pad), value=flow_pairhmm.HAP_PAD)
-    smem = _kernels.library("flow_pairhmm_dense").flow_pairhmm_dense_smem(Hp)
-    assert (smem <= _kernels.FLOW_MAX_SMEM) == in_smem
+    assert _kernels.flow_pairhmm_dense_layout(Hp, 8)[0] == route
     got = _kernels.flow_pairhmm_dense(tab, ri, hi)
     _flow_close(got, _flow_dense(tab, ri, hi))
     assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("seed,read_lens,hap_lens,route", [
+    (15, (120, 200, 35), (450, 380), "registers"),  # Hp 672: 6 cells a lane
+    (16, (80, 150), (1000, 300), "shared"),
+    (17, (100, 60), (13000,), "device"),  # Hp ~19,600: one wide task a pair
+])
+def test_flow_dense_kernel_on_each_state_route(cuda_device, seed, read_lens, hap_lens, route):
+    """The dense kernel on haplotypes as wide as the tables, in TGCATGAC, on
+    each route of its state, against gatk_tpu's dense scan (its plain
+    version) and the sum of the live lattices (flow_pairhmm_live_plain)."""
+    from gatk_tpu_torch.ops import _kernels, flow_pairhmm
+
+    tab, ri, hi = _off_rule_tables(seed, read_lens, hap_lens, cuda_device)
+    Hp, T1 = tab["hkey"].shape[1], tab["tables"].shape[2]
+    assert _kernels.flow_pairhmm_dense_layout(Hp, T1)[0] == route
+    got = _kernels.flow_pairhmm_dense(tab, ri, hi)
+    _flow_close(got, _flow_dense(tab, ri, hi))
+    _flow_close(got, flow_pairhmm.flow_pairhmm_live_plain(tab, ri, hi))
+    assert torch.isfinite(got).any()
+
+
+def test_flow_smem_mirror_equals_the_library(cuda_device):
+    """ops/_kernels.flow_pairhmm_smem, which the entry routes by, equals the
+    coset kernel's own flow_pairhmm_smem."""
+    import ctypes
+
+    from gatk_tpu_torch.ops import _kernels
+
+    lib = _kernels.library("flow_pairhmm")
+    warps = ctypes.c_int(0)
+    for Hp in (0, 1, 507, 508, 584, 4000, 20987, 20988, 21115, 21116, 21200, 25036):
+        for T1 in (1, 8, 9, 10, 100, 185, 186, 1000):
+            assert _kernels.flow_pairhmm_smem(Hp, T1) == lib.flow_pairhmm_smem(
+                Hp, T1, ctypes.byref(warps)), (Hp, T1)
+
+
+def test_flow_entry_past_the_coset_width_launches_the_dense_kernel(cuda_device):
+    """A haplotype of 21,200 flows (T1 8), past the 21,115 the coset kernel's
+    shared memory holds: the entry makes one dense launch over every pair and
+    no coset launch, and gives the dense plain version's values and
+    gatk_tpu's answer on the CPU, [-10.36303616, -10.9987011]."""
+    from gatk_tpu_torch.ops import _kernels, flow, flow_pairhmm
+    from gatk_tpu_torch.utils import synthetic
+
+    hap_bases, read_specs = synthetic.flow_batch(0, (200, 200), (14000,))
+    haps = [flow.FlowBasedHaplotype(h) for h in hap_bases]
+    reads = [flow.FlowBasedRead(b, q, tp=tp) for b, q, tp in read_specs]
+    tab = flow_pairhmm.pack_flow_tables(haps, reads, cuda_device)
+    assert tab["hkey"].shape[1] == 21200 and tab["tables"].shape[2] == 8
+    assert _kernels.flow_pairhmm_smem(21200, 8) > _kernels.FLOW_MAX_SMEM
+    assert _kernels.flow_pairhmm_dense_layout(21200, 8)[0] == "device"
+    entry = flow_pairhmm.flow_pairhmm_pairs
+    before = (entry.launches, entry.dense.launches, entry.dense.pairs)
+    got = flow_pairhmm.compute_flow_likelihood_matrix(haps, reads, device=cuda_device)
+    assert (entry.launches, entry.dense.launches, entry.dense.pairs) == (
+        before[0], before[1] + 1, before[2] + 2)
+    ri, hi = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device), torch.zeros(
+        2, dtype=torch.int32, device=cuda_device)
+    want = flow_pairhmm.flow_pairhmm_dense_plain(tab, ri, hi)
+    _flow_close(torch.from_numpy(got.ravel()).float().to(cuda_device), want)
+    assert np.abs(got.ravel() - [-10.36303616, -10.9987011]).max() <= TOL
 
 
 def test_flow_entry_scores_an_order_that_is_not_4_periodic(cuda_device):
