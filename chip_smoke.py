@@ -170,6 +170,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
            haplotypes and the largest launch of the gvcf run, against its plain
            version; timed beside its bound and beside the pair kernel on the
            same product expanded into pairs
+  tools    host tools only (no kernel): the port's registry holds gatk_tpu's 312
+           tool names and 36 Spark-named aliases (on the card machine, which
+           has none of h5py, scikit-learn and matplotlib); then on the hc sample
+           ValidateSamFile (no error), SamToFastq then FastqToSam (the same
+           read names and, in sequencing orientation, the same bases),
+           CreateSequenceDictionary (chrM at its length), CollectWgsMetrics
+           (MEAN_COVERAGE above 0 and at most the raw depth the phase counts)
+           and SortSam of a shuffled copy (the input's coordinates in order,
+           the same reads at each), each tool's wall on the host clock
 Each of the runs hc, ramped, recaller, gvcf, flow, trio, mutect2, preprocess,
 distributed (its sharded calls; its two-process HaplotypeCaller runs, summed
 over the processes; its ReadsPipelineSpark run), postcall (its two
@@ -1892,6 +1901,111 @@ def phase_postcall(tmp, flow_sample, cs):
 # --------------------------------------------------------------------------- ramped / recaller
 
 
+# gatk_tpu's registry (gatk_tpu/cli.py) holds 312 tool names, 36 of them
+# Spark-named aliases; the port registers each of them
+N_TOOLS, N_ALIASES = 312, 36
+
+
+def _host_tool(argv):
+    """One run of a host tool through the port's CLI: (wall s on the host
+    clock, what it printed); fails the script when the tool fails."""
+    import io
+
+    from gatk_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{' '.join(argv)} exited {rc}: {out.getvalue()[-500:]}")
+    return wall, out.getvalue()
+
+
+def _fastq_records(path):
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)]
+
+
+def _metrics_row(path, first_column):
+    """The first row of a metrics file's table, by column name."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    i = next(k for k, line in enumerate(lines) if line.startswith(first_column + "\t"))
+    return dict(zip(lines[i].split("\t"), lines[i + 1].split("\t")))
+
+
+def phase_tools(tmp, sample):
+    """Host tools copied from gatk_tpu, on the hc sample; see the module
+    docstring. No kernel runs here: every wall is on the host clock."""
+    from gatk_tpu_torch import cli
+    from gatk_tpu_torch.io import bam
+
+    check(len(cli.TOOL_REGISTRY) == N_TOOLS and len(cli.TOOL_ALIASES) == N_ALIASES,
+          f"the registry holds {len(cli.TOOL_REGISTRY)} names and {len(cli.TOOL_ALIASES)} "
+          f"aliases, gatk_tpu's {N_TOOLS} and {N_ALIASES}")
+    check(all(t in cli.TOOL_REGISTRY for t in cli.TOOL_ALIASES.values()),
+          "an alias names a tool that is not registered")
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d)
+    walls = {}
+    reads = list(bam.BamReader(sample["bam"]))
+
+    walls["ValidateSamFile"], text = _host_tool(["ValidateSamFile", "-I", sample["bam"]])
+    check(text.strip() == "No errors found", f"ValidateSamFile: {text.strip()[-300:]}")
+
+    fq = os.path.join(d, "reads.fastq")
+    walls["SamToFastq"], _ = _host_tool(["SamToFastq", "-I", sample["bam"], "-F", fq])
+    unaligned = os.path.join(d, "unaligned.bam")
+    walls["FastqToSam"], _ = _host_tool(["FastqToSam", "-F1", fq, "-O", unaligned,
+                                         "-SM", "SYN1"])
+    comp = np.arange(256, dtype=np.uint8)
+    for a, b in zip(b"ACGTN", b"TGCAN"):
+        comp[a] = b
+    want = [(r.name, (comp[r.bases[::-1]] if r.is_reverse else r.bases).tobytes().decode())
+            for r in reads]
+    check(_fastq_records(fq) == want, "SamToFastq: the FASTQ is not the reads in sequencing "
+                                      "orientation")
+    back = [(r.name, r.bases.tobytes().decode()) for r in bam.BamReader(unaligned)]
+    check(sorted(back) == sorted(want), "FastqToSam did not give back the reads' names and bases")
+
+    dict_path = os.path.join(d, "ref.dict")
+    walls["CreateSequenceDictionary"], _ = _host_tool(
+        ["CreateSequenceDictionary", "-R", sample["fasta"], "-O", dict_path])
+    with open(dict_path) as fh:
+        sq = [line.split("\t") for line in fh if line.startswith("@SQ")]
+    check([(f[1], f[2]) for f in sq] == [("SN:chrM", f"LN:{sample['length']}")],
+          f"CreateSequenceDictionary: {sq}")
+
+    wgs = os.path.join(d, "wgs.txt")
+    walls["CollectWgsMetrics"], _ = _host_tool(["CollectWgsMetrics", "-I", sample["bam"],
+                                                "-R", sample["fasta"], "-O", wgs])
+    raw_depth = sum(len(r.bases) for r in reads) / sample["length"]
+    mean_cov = float(_metrics_row(wgs, "GENOME_TERRITORY")["MEAN_COVERAGE"])
+    check(0 < mean_cov <= raw_depth, f"CollectWgsMetrics: MEAN_COVERAGE {mean_cov}, raw depth "
+                                     f"{raw_depth}")
+
+    shuffled = os.path.join(d, "shuffled.bam")
+    reader = bam.BamReader(sample["bam"])
+    order = np.random.default_rng(0).permutation(len(reads))
+    w = bam.BamWriter(shuffled, reader.header)
+    for k in order:
+        w.write(reads[int(k)])
+    w.close()
+    sorted_bam = os.path.join(d, "sorted.bam")
+    walls["SortSam"], _ = _host_tool(["SortSam", "-I", shuffled, "-O", sorted_bam])
+    got = [(r.pos, r.name) for r in bam.BamReader(sorted_bam)]
+    check([p for p, _ in got] == [r.pos for r in reads] and sorted(got) == sorted(
+        (r.pos, r.name) for r in reads), "SortSam did not give back the input's order")
+
+    res = dict(phase="tools", clock="host", registry=len(cli.TOOL_REGISTRY),
+               aliases=len(cli.TOOL_ALIASES), reads=len(reads), mean_coverage=mean_cov,
+               raw_depth=raw_depth, host_wall_s=walls, host_total_s=sum(walls.values()))
+    emit(res)
+    return res
+
+
 def _sites(recs):
     return [(r["pos"], r["ref"], r["alts"], r["gt"]) for r in recs]
 
@@ -3016,8 +3130,9 @@ def main():
         hmm = phase_cnv_hmm(dev, gcnv_model)
         del gcnv_model
         phase_somatic_cnv(dev, tmp)
-    main_launch = phase_main_launch(kept_hc)
-    mat = phase_matrix(dev, kept_gvcf)
+        main_launch = phase_main_launch(kept_hc)
+        mat = phase_matrix(dev, kept_gvcf)
+        phase_tools(tmp, sample)
     smi = nvidia_smi_line()
 
     # launches on each path, counted from 0 at its start; a kernel is timed at

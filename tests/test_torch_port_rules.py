@@ -57,7 +57,7 @@ def test_port_imports_neither_jax_nor_gatk_tpu():
 
 
 def test_every_module_named_in_a_header_is_copied():
-    assert len(_copied_files()) == 109
+    assert len(_copied_files()) == 129
 
 
 def _is_import(node):
@@ -79,14 +79,18 @@ RENAMED = {"calling/hc_engine.py": (18, 332, 407, 518, 549),
 # copy -> {line of the original: (the start of its text, its text in the copy)}:
 # ReadsPipeline hands its --device flag on to HaplotypeCaller, which would
 # default to cuda; the test-data locator's default root is the checkout's
-# reference/ directory, not the path of the machine gatk_tpu was written on
+# reference/ directory, not the path of the machine gatk_tpu was written on;
+# GenerateToolWdl's WDL task runs the port's package, not gatk_tpu
 EDITED = {"tools/analysis_tools.py": {540: (
     '                   "-ERC", args.emit_ref_confidence,\n',
     '                   "-ERC", args.emit_ref_confidence, "--device", args.device,\n')},
           "utils/testdata.py": {8: (
     'REFERENCE_ROOT = os.environ.get("GATK_REFERENCE_ROOT", ',
     'REFERENCE_ROOT = os.environ.get("GATK_REFERENCE_ROOT", '
-    'f"{os.path.dirname(__file__)}/../../reference")\n')}}
+    'f"{os.path.dirname(__file__)}/../../reference")\n')},
+          "tools/barclay_tools.py": {111: (
+    '    python -m gatk_tpu {name} ',
+    '    python -m gatk_tpu_torch {name} \\\\\n')}}
 # the PairHMM's flag: Mutect2, RampedHaplotypeCaller, HaplotypeBasedVariantRecaller,
 # ReadsPipeline, FlowPairHMMAlignReadsToHaplotypes
 MUTECT2_DEVICE_FLAG = [
