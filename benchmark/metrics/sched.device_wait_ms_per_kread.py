@@ -1,0 +1,10 @@
+"""sched.device_wait_ms_per_kread: the program's STAGES["device_wait"] seconds over the window
+(thread-occupancy: summed over ShardedCaller's host threads, not the
+critical path), in ms per thousand reads of the window's calls."""
+
+
+def read(run):
+    s = run.stages.get("device_wait")
+    if s is None or not run.reads:
+        return None
+    return s * 1e3 / (run.reads / 1e3)
