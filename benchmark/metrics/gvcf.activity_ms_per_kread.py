@@ -1,0 +1,11 @@
+"""gvcf.activity_ms_per_kread: the program's STAGES["activity_profile"] seconds over the
+window (engine/activity.compute_raw_activity and pop_regions on the -ERC GVCF path), in
+ms per thousand reads of the window's calls; nothing where the program records no such
+stage."""
+
+
+def read(run):
+    s = run.stages.get("activity_profile")
+    if s is None or not run.reads:
+        return None
+    return s * 1e3 / (run.reads / 1e3)

@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/assembly/assembler.py; only import lines may differ.
+# Copied verbatim from gatk_tpu/assembly/assembler.py; only import lines and the tracer's decorator lines (utils/trace.py) differ.
 """Read-threading assembler orchestration (ReadThreadingAssembler equivalent).
 
 Reference behavior: readthreading/ReadThreadingAssembler.java — runLocalAssembly
@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..ops import smith_waterman as sw
+from ..utils import trace
 from . import kbest, pruning
 from .haplotype import Haplotype, build_event_map
 from . import rtgraph
@@ -36,6 +37,7 @@ class AssemblyResult:
     graphs: dict = field(default_factory=dict)
 
 
+@trace.stage("assembly")
 def assemble(
     reads,
     ref_bases: np.ndarray,

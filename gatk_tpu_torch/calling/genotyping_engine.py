@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/calling/genotyping_engine.py; only import lines may differ.
+# Copied verbatim from gatk_tpu/calling/genotyping_engine.py; only import lines and the tracer's decorator lines (utils/trace.py) differ.
 """Assembly-based genotyping (HaplotypeCallerGenotypingEngine equivalent).
 
 Reference behavior: haplotypecaller/HaplotypeCallerGenotypingEngine.java:120-292 —
@@ -15,6 +15,7 @@ import numpy as np
 from ..assembly.haplotype import Event
 from ..io import sam
 from ..io.vcf import Variant
+from ..utils import trace
 from . import genotyper
 from .likelihoods import AlleleLikelihoods
 
@@ -50,6 +51,7 @@ def event_to_merged_alt(e: Event, longest_ref: str) -> str:
     return e.alt + longest_ref[len(e.ref) :]
 
 
+@trace.stage("genotype")
 def assign_genotype_likelihoods(
     haplotypes,
     read_likelihoods: AlleleLikelihoods,

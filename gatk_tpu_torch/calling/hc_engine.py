@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/calling/hc_engine.py; only import lines and the PairHMM module name (pairhmm_tpu -> pairhmm) differ.
+# Copied verbatim from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm) and the tracer's decorator lines (utils/trace.py) differ.
 """HaplotypeCaller engine: end-to-end single-sample germline calling.
 
 Reference behavior: haplotypecaller/HaplotypeCallerEngine.java (isActive :663-726,
@@ -17,7 +17,8 @@ from ..engine import activity, clipping, filters
 from ..engine.intervals import Interval
 from ..io import fasta
 from ..ops import pairhmm
-from ..utils.stopwatch import STAGES
+from ..utils import trace
+from ..utils.trace import STAGES
 from . import genotyping_engine, read_prep
 from .likelihoods import AlleleLikelihoods
 
@@ -104,6 +105,7 @@ class AssemblyRegionCall:
     variants: list = field(default_factory=list)
 
 
+@trace.stage("downsample")
 def positional_downsample(reads, max_per_start: int):
     """Keep at most max_per_start reads per alignment start via seeded reservoir
     sampling (PositionalDownsampler.java:23 + ReservoirDownsampler.java:121-126:
@@ -288,6 +290,7 @@ def _finalize_simple(r, padded: Interval, keep_soft: bool):
                       r.mate_ref_id, r.mate_pos, r.tlen, r.tags)
 
 
+@trace.stage("finalize_reads")
 def finalize_region_reads(region_reads, padded: Interval, args: HCArgs):
     """AssemblyBasedCallerUtils.finalizeRegion equivalent.
 
@@ -325,6 +328,7 @@ def _well_defined_fragment(r):
     return r.pos <= r.mate_pos + r.tlen
 
 
+@trace.stage("pairhmm")
 def compute_pairhmm_likelihoods(haplotypes, reads, args: HCArgs) -> AlleleLikelihoods:
     """reads x haplotypes log10 likelihood matrix via the cartesian Pallas kernel
     (interpret mode on CPU backends)."""
@@ -613,6 +617,7 @@ class HaplotypeCallerEngine:
         return variants, summary
 
 
+@trace.span("hc.gvcf_interval")
 def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interval,
                        gq_bands=None):
     """GVCF-mode calling: variant records carry <NON_REF>; hom-ref positions get

@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/calling/read_prep.py; only import lines may differ.
+# Copied verbatim from gatk_tpu/calling/read_prep.py; only import lines and the tracer's decorator lines (utils/trace.py) differ.
 """Read quality preparation for PairHMM (PairHMMLikelihoodCalculationEngine's
 modifyReadQualities/applyPCRErrorModel/capMinimumReadQualities equivalents).
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+from ..utils import trace
 
 DEFAULT_GCP = 10
 DEFAULT_INS_GOP = 45
@@ -289,6 +290,7 @@ def prepare_read_for_pairhmm(read, pcr_error_model: str = "CONSERVATIVE"):
     return prepare_reads_for_pairhmm([read], pcr_error_model)[0]
 
 
+@trace.stage("read_prep")
 def prepare_reads_for_pairhmm(reads, pcr_error_model: str = "CONSERVATIVE"):
     """Batch variant of prepare_read_for_pairhmm: one vectorized PCR-error-model
     pass over all reads (the per-position tandem-repeat scan is the hot loop of

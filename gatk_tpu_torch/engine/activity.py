@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/engine/activity.py; only import lines may differ.
+# Copied verbatim from gatk_tpu/engine/activity.py; only import lines and the tracer's decorator lines (utils/trace.py) differ.
 """Active-region detection (HaplotypeCallerEngine.isActive + BandPassActivityProfile
 + ActivityProfile.popReadyAssemblyRegions equivalents), as batch array math.
 
@@ -23,6 +23,7 @@ import numpy as np
 from scipy.special import gammaln
 
 from ..utils import quals as qu
+from ..utils import trace
 from ..utils.mathx import approximate_log10_sum_log10, log10_binomial_coefficient
 from . import pileup as pileup_mod
 
@@ -109,6 +110,7 @@ def _gl_luts(ploidy: int, alt_multiplier: float):
     return luts
 
 
+@trace.stage("activity_profile")
 def compute_raw_activity(
     reads,
     span_start: int,
@@ -235,6 +237,7 @@ class RawRegion:
     is_active: bool
 
 
+@trace.stage("activity_profile")
 def pop_regions(
     probs,
     threshold=DEFAULT_ACTIVE_PROB_THRESHOLD,

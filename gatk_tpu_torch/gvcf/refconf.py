@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/gvcf/refconf.py; only import lines may differ.
+# Copied verbatim from gatk_tpu/gvcf/refconf.py; only import lines and the tracer's decorator lines (utils/trace.py) differ.
 """Reference-confidence model + GVCF hom-ref banding.
 
 Reference behavior: haplotypecaller/ReferenceConfidenceModel.java
@@ -17,6 +17,7 @@ import numpy as np
 
 from ..engine import pileup as pileup_mod
 from ..io.vcf import Variant
+from ..utils import trace
 
 LOG10_ONE_THIRD = -math.log10(3.0)
 INDEL_QUAL = 45  # round(4.5 * 10)
@@ -42,6 +43,7 @@ def indel_pls(ploidy: int, n_informative: int) -> np.ndarray:
     return np.round(pl).astype(int)
 
 
+@trace.stage("refconf")
 def ref_vs_any_gls(reads, span_start: int, span_end: int, ref_span: np.ndarray,
                    min_base_qual: int = 10, ploidy: int = 2):
     """Vectorized per-position ref-vs-any genotype likelihoods.

@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/mutect/activity.py; only import lines may differ.
+# Copied verbatim from gatk_tpu/mutect/activity.py; only import lines and the tracer's decorator lines (utils/trace.py) differ.
 """Mutect2 active-region detection.
 
 Reference behavior: mutect/Mutect2Engine.java isActive :465-542 (pileup qual
@@ -11,6 +11,7 @@ import numpy as np
 
 from ..engine import activity as hc_activity
 from ..io import sam
+from ..utils import trace
 from .somatic_likelihoods import log_likelihood_ratio
 
 MINIMUM_BASE_QUALITY = 6
@@ -161,6 +162,7 @@ def compute_m2_activity(reads, span_start, span_end, ref_span, initial_log_odds:
     return probs, np.zeros(n)
 
 
+@trace.stage("m2_activity")
 def find_active_regions(reads, span_start, span_end, ref_span, contig_len,
                         initial_log_odds: float, pcr_snv_qual: int = 40):
     """Activity -> band-pass -> region segmentation (shared HC machinery)."""

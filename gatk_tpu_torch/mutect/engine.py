@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/mutect/engine.py; only import lines and the PairHMM module name (pairhmm_tpu -> pairhmm) differ.
+# Copied verbatim from gatk_tpu/mutect/engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm) and the tracer's decorator lines (utils/trace.py) differ.
 """Mutect2 engine: tumor(-normal) somatic calling on assembled regions.
 
 Reference behavior: mutect/Mutect2Engine.java (callRegion :254-330, read filters
@@ -22,6 +22,7 @@ from ..engine.intervals import Interval
 from ..io import fasta, sam
 from ..io.vcf import Variant
 from ..ops import pairhmm
+from ..utils import trace
 from . import activity as m2_activity
 from . import somatic_likelihoods as sle
 
@@ -128,6 +129,7 @@ class Mutect2Engine:
 
     # ---------------- interval driver ----------------
 
+    @trace.span("m2.call_interval")
     def call_interval(self, reads, interval: Interval, sample_of_read=None):
         """reads: coordinate-sorted reads overlapping the interval. sample_of_read:
         optional fn(read)->sample name for tumor/normal separation."""
@@ -173,6 +175,7 @@ class Mutect2Engine:
             all_variants.extend(self._finish_region(prep, sample_of_read))
         return [v for v in all_variants if interval.start <= v.pos < interval.end]
 
+    @trace.stage("callable_sites")
     def count_callable_sites(self, reads, interval: Interval) -> int:
         """Sites in the interval with filtered depth >= callable_depth
         (Mutect2Engine pileup-visit counting; feeds the .stats 'callable' row)."""
@@ -202,6 +205,7 @@ class Mutect2Engine:
         batcher.flush()
         return self._finish_region(prep, sample_of_read)
 
+    @trace.span("m2.prepare_region")
     def _prepare_region(self, reads, span: Interval, batcher):
         """Host-side finalize + assembly + pooled PairHMM dispatch."""
         args = self.args
@@ -225,6 +229,7 @@ class Mutect2Engine:
         return dict(span=span, padded=padded, final_reads=final_reads,
                     prepped=prepped, haplotypes=haplotypes, handle=handle)
 
+    @trace.span("m2.finish_region")
     def _finish_region(self, prep, sample_of_read=None):
         """Fetch the pooled likelihoods and run somatic genotyping."""
         span, padded = prep["span"], prep["padded"]
@@ -305,6 +310,7 @@ class Mutect2Engine:
             f2r1,
         )
 
+    @trace.stage("somatic_genotype")
     def _call_mutations(self, haplotypes, fragments, frag_log_liks, span, padded):
         args = self.args
         variants = []

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..devices import resolve_device
+from ..utils import trace
 
 LN10 = math.log(10.0)
 LN2 = math.log(2.0)
@@ -512,6 +513,7 @@ def _apply_floor(mat, reads, haps, floor):
     return mat
 
 
+@trace.stage("device_wait")
 def finish_likelihood_matrix(handle, reads, haps, floor="clamp"):
     """Block on a start_likelihood_matrix / PoolBatcher handle and post-process:
     (n_reads, n_haps) float64 log10 likelihoods."""
@@ -667,6 +669,7 @@ class PoolBatcher:
         self._n_haps = base + len(haps)
         return base
 
+    @trace.stage("pack_dispatch")
     def add_region(self, reads, haps) -> object:
         """Queue one region's read x hap cartesian product; returns a lazy
         handle whose np.asarray() is the (nh, nr) log10 matrix."""
@@ -699,6 +702,7 @@ class PoolBatcher:
                 self._flush_locked()
             return handle
 
+    @trace.stage("flush")
     def flush(self):
         with self._lock:
             self._flush_locked()

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 
 def split_interval_shards(targets, n_shards: int):
     """Split target intervals into n_shards contiguous chunks of ~equal bp
@@ -126,7 +128,9 @@ class ShardedCaller:
             n = len(futures)
             while idx < n:
                 hi = min(idx + WINDOW, n)
-                window = [(f[0], f[1].result()) for f in futures[idx:hi]]
+                # the queue wait: this window's preps, from the pool threads
+                with trace.stage("prep_wait", interval=interval):
+                    window = [(f[0], f[1].result()) for f in futures[idx:hi]]
                 for f in futures[idx:hi]:
                     f[1] = None  # release the Future's reference to the prep
                 # materialize this window's handles: flush whatever is pooled

@@ -7,8 +7,6 @@ targets on their local devices (every CUDA device, or the host with --device
 cpu) and process 0 gathers the shards (parallel/multihost.py)."""
 from __future__ import annotations
 
-import os
-
 import torch
 
 from ..calling import hc_engine
@@ -16,7 +14,7 @@ from ..cli import register_tool, standard_io_parser
 from ..engine import intervals as iv
 from ..io import fasta, vcf
 from .. import devices
-from ..utils.stopwatch import STAGES
+from ..utils import trace
 
 VCF_HEADER_LINES = [
     '##FILTER=<ID=LowQual,Description="Low quality">',
@@ -32,9 +30,8 @@ VCF_HEADER_LINES = [
 ]
 
 
-@register_tool("HaplotypeCaller")
-def haplotype_caller(argv):
-    """Call germline SNPs and indels via local re-assembly of haplotypes."""
+def _parser():
+    """HaplotypeCaller's argument parser."""
     p = standard_io_parser("HaplotypeCaller")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the PairHMM runs: the CUDA kernel on every local GPU, "
@@ -126,125 +123,133 @@ def haplotype_caller(argv):
                    help="fine-shard assignment across processes: contiguous "
                         "bp-balanced runs, or round-robin interleave "
                         "(SparkSharder-style load balancing for work hotspots)")
-    args = p.parse_args(argv)
+    return p
 
-    # the device choice holds for every PairHMM caller, including the -ERC GVCF
-    # route, which passes no device (hc_engine.compute_pairhmm_likelihoods)
-    devices.set_default_device(args.device)
-    # None: every local CUDA device (ShardedCaller), in each process of a
-    # distributed run too
-    shard_devices = [torch.device("cpu")] if args.device == "cpu" else None
 
-    distributed = args.distributed_coordinator and args.distributed_num_processes > 1
-    join_init = None
-    if distributed:
-        from ..parallel import multihost
-        # overlap the rendezvous with the opening of the reference and the
-        # BAM below; joined (and its failure raised) before any collective
-        join_init = multihost.start_initialize(
-            args.distributed_coordinator, args.distributed_num_processes,
-            args.distributed_process_id)
+@register_tool("HaplotypeCaller")
+def haplotype_caller(argv):
+    """Call germline SNPs and indels via local re-assembly of haplotypes."""
+    with trace.span("hc.setup"):
+        # the call's fixed cost: arguments, reference, BAM, engine, scheduler
+        args = _parser().parse_args(argv)
 
-    ref = fasta.FastaReference(args.reference)
-    from ..io.cram import open_reads
-    readers = [open_reads(path, reference=ref) for path in args.input]
-    if join_init is not None:
-        join_init()
-    header = readers[0].header
-    sample = header.read_groups[0].get("SM", "SAMPLE") if header.read_groups else "SAMPLE"
+        # the device choice holds for every PairHMM caller, including the -ERC GVCF
+        # route, which passes no device (hc_engine.compute_pairhmm_likelihoods)
+        devices.set_default_device(args.device)
+        # None: every local CUDA device (ShardedCaller), in each process of a
+        # distributed run too
+        shard_devices = [torch.device("cpu")] if args.device == "cpu" else None
 
-    contig_lengths = {s.name: s.length for s in header.sequences}
-    from ..cli_args import resolve_intervals
+        distributed = args.distributed_coordinator and args.distributed_num_processes > 1
+        join_init = None
+        if distributed:
+            from ..parallel import multihost
+            # overlap the rendezvous with the opening of the reference and the
+            # BAM below; joined (and its failure raised) before any collective
+            join_init = multihost.start_initialize(
+                args.distributed_coordinator, args.distributed_num_processes,
+                args.distributed_process_id)
 
-    targets = resolve_intervals(args, contig_lengths)
-    if targets is None:
-        targets = [iv.Interval(s.name, 0, s.length) for s in header.sequences]
-    if args.shard_size:
-        targets = [iv.Interval(t.contig, s, min(s + args.shard_size, t.end))
-                   for t in targets for s in range(t.start, t.end, args.shard_size)]
-    out_path = args.output
-    if distributed:
-        targets = multihost.shard_targets(
-            targets, args.distributed_num_processes, args.distributed_process_id,
-            mode=args.distributed_shard_mode)
-        out_path = multihost.shard_vcf_path(args.output, args.distributed_process_id)
+        ref = fasta.FastaReference(args.reference)
+        from ..io.cram import open_reads
+        readers = [open_reads(path, reference=ref) for path in args.input]
+        if join_init is not None:
+            join_init()
+        header = readers[0].header
+        sample = header.read_groups[0].get("SM", "SAMPLE") if header.read_groups else "SAMPLE"
 
-    hc_args = hc_engine.HCArgs(
-        min_base_quality_score=args.min_base_quality_score,
-        standard_confidence=args.standard_min_confidence_threshold_for_calling,
-        ploidy=args.sample_ploidy,
-        dont_use_soft_clipped_bases=args.dont_use_soft_clipped_bases,
-        adaptive_pruning=args.adaptive_pruning,
-        linked_de_bruijn_graph=args.linked_de_bruijn_graph,
-        max_reads_per_alignment_start=args.max_reads_per_alignment_start,
-        filter_alleles=args.filter_alleles,
-        prefilter_qual_threshold=args.prefilter_qual_threshold,
-        prefilter_sor_threshold=args.prefilter_sor_threshold,
-        as_annotations="AS_StandardAnnotation" in args.annotation_group,
-        extra_read_filters=tuple(args.read_filter),
-        disabled_read_filters=tuple(args.disable_read_filter),
-        likelihood_engine=args.likelihood_engine,
-        flow_order=args.flow_order,
-        output_mode=args.output_mode,
-        genotype_assignment_method=args.genotype_assignment_method,
-        assembly_region_trimming=args.trimming,
-        flow_assembly_collapse_hmer_size=args.flow_assembly_collapse_hmer_size,
-        apply_bqd=args.apply_bqd or args.dragen_mode,
-        apply_frd=args.apply_frd or args.dragen_mode,
-        max_effective_depth_adjustment_for_frd=args.max_effective_depth_adjustment_for_frd,
-    )
-    if args.dragen_mode or args.pileup_detection or args.use_pdhmm:
-        from ..calling.pileup_alleles import PileupDetectionArgs
+        contig_lengths = {s.name: s.length for s in header.sequences}
+        from ..cli_args import resolve_intervals
 
-        pa = (PileupDetectionArgs.dragen_378() if args.dragen_mode
-              else PileupDetectionArgs(use_pileup_detection=True))
-        pa.detect_indels = pa.detect_indels or args.pileup_indels
-        pa.generate_pd_haplotypes = pa.generate_pd_haplotypes or args.use_pdhmm
-        pa.snp_threshold = args.pileup_detection_snp_alt_threshold
-        pa.indel_threshold = args.pileup_detection_indel_alt_threshold
-        pa.absolute_depth = args.pileup_detection_absolute_alt_depth
-        if args.pileup_detection_bad_read_tolerance > 0:
-            pa.bad_read_threshold = args.pileup_detection_bad_read_tolerance
-        hc_args.pileup_args = pa
-    engine = hc_engine.HaplotypeCallerEngine(ref, sample, hc_args)
-    if args.bamout:
-        from ..calling.bamout import BamoutCollector
-        contig_ids = {s.name: i for i, s in enumerate(header.sequences)}
-        engine.bamout = BamoutCollector(contig_ids)
-    from ..parallel.scheduler import ShardedCaller
+        targets = resolve_intervals(args, contig_lengths)
+        if targets is None:
+            targets = [iv.Interval(s.name, 0, s.length) for s in header.sequences]
+        if args.shard_size:
+            targets = [iv.Interval(t.contig, s, min(s + args.shard_size, t.end))
+                       for t in targets for s in range(t.start, t.end, args.shard_size)]
+        out_path = args.output
+        if distributed:
+            targets = multihost.shard_targets(
+                targets, args.distributed_num_processes, args.distributed_process_id,
+                mode=args.distributed_shard_mode)
+            out_path = multihost.shard_vcf_path(args.output, args.distributed_process_id)
 
-    caller = ShardedCaller(engine, shard_devices)  # round-robins regions over the devices
+        hc_args = hc_engine.HCArgs(
+            min_base_quality_score=args.min_base_quality_score,
+            standard_confidence=args.standard_min_confidence_threshold_for_calling,
+            ploidy=args.sample_ploidy,
+            dont_use_soft_clipped_bases=args.dont_use_soft_clipped_bases,
+            adaptive_pruning=args.adaptive_pruning,
+            linked_de_bruijn_graph=args.linked_de_bruijn_graph,
+            max_reads_per_alignment_start=args.max_reads_per_alignment_start,
+            filter_alleles=args.filter_alleles,
+            prefilter_qual_threshold=args.prefilter_qual_threshold,
+            prefilter_sor_threshold=args.prefilter_sor_threshold,
+            as_annotations="AS_StandardAnnotation" in args.annotation_group,
+            extra_read_filters=tuple(args.read_filter),
+            disabled_read_filters=tuple(args.disable_read_filter),
+            likelihood_engine=args.likelihood_engine,
+            flow_order=args.flow_order,
+            output_mode=args.output_mode,
+            genotype_assignment_method=args.genotype_assignment_method,
+            assembly_region_trimming=args.trimming,
+            flow_assembly_collapse_hmer_size=args.flow_assembly_collapse_hmer_size,
+            apply_bqd=args.apply_bqd or args.dragen_mode,
+            apply_frd=args.apply_frd or args.dragen_mode,
+            max_effective_depth_adjustment_for_frd=args.max_effective_depth_adjustment_for_frd,
+        )
+        if args.dragen_mode or args.pileup_detection or args.use_pdhmm:
+            from ..calling.pileup_alleles import PileupDetectionArgs
 
-    gvcf_mode = args.emit_ref_confidence == "GVCF"
-    header_lines = list(VCF_HEADER_LINES)
-    if gvcf_mode:
-        header_lines += [
-            '##ALT=<ID=NON_REF,Description="Represents any possible alternative allele">',
-            '##FORMAT=<ID=MIN_DP,Number=1,Type=Integer,Description="Minimum DP observed within the GVCF block">',
-            '##INFO=<ID=END,Number=1,Type=Integer,Description="Stop position of the interval">',
-        ]
-    if "AS_StandardAnnotation" in args.annotation_group:
-        header_lines += [
-            '##INFO=<ID=AS_RAW_BaseQRankSum,Number=1,Type=String,Description="raw data for allele specific rank sum test of base qualities">',
-            '##INFO=<ID=AS_RAW_MQ,Number=A,Type=Float,Description="Allele-specfic raw data for RMS Mapping Quality">',
-            '##INFO=<ID=AS_RAW_MQRankSum,Number=1,Type=String,Description="Allele-specfic raw data for Mapping Quality Rank Sum">',
-            '##INFO=<ID=AS_RAW_ReadPosRankSum,Number=1,Type=String,Description="allele specific raw data for rank sum test of read position bias">',
-            '##INFO=<ID=AS_SB_TABLE,Number=1,Type=String,Description="Allele-specific forward/reverse read counts for strand bias tests">',
-            '##FORMAT=<ID=SB,Number=4,Type=Integer,Description="Per-sample component statistics which comprise the Fisher\'s Exact Test to detect strand bias.">',
-        ]
-    writer = vcf.VcfWriter(
-        out_path,
-        [sample],
-        contigs=[(s.name, s.length) for s in header.sequences],
-        extra_header_lines=header_lines,
-    )
-    ckpt = None
-    if args.checkpoint_dir:
-        from ..engine.checkpoint import ShardCheckpointer
-        ckpt = ShardCheckpointer(args.checkpoint_dir)
-    from ..engine.progress import ProgressMeter
-    from ..utils.javarandom import reset_random_generator
-    pm = ProgressMeter("HaplotypeCaller", unit="variants").start()
+            pa = (PileupDetectionArgs.dragen_378() if args.dragen_mode
+                  else PileupDetectionArgs(use_pileup_detection=True))
+            pa.detect_indels = pa.detect_indels or args.pileup_indels
+            pa.generate_pd_haplotypes = pa.generate_pd_haplotypes or args.use_pdhmm
+            pa.snp_threshold = args.pileup_detection_snp_alt_threshold
+            pa.indel_threshold = args.pileup_detection_indel_alt_threshold
+            pa.absolute_depth = args.pileup_detection_absolute_alt_depth
+            if args.pileup_detection_bad_read_tolerance > 0:
+                pa.bad_read_threshold = args.pileup_detection_bad_read_tolerance
+            hc_args.pileup_args = pa
+        engine = hc_engine.HaplotypeCallerEngine(ref, sample, hc_args)
+        if args.bamout:
+            from ..calling.bamout import BamoutCollector
+            contig_ids = {s.name: i for i, s in enumerate(header.sequences)}
+            engine.bamout = BamoutCollector(contig_ids)
+        from ..parallel.scheduler import ShardedCaller
+
+        caller = ShardedCaller(engine, shard_devices)  # round-robins regions over the devices
+
+        gvcf_mode = args.emit_ref_confidence == "GVCF"
+        header_lines = list(VCF_HEADER_LINES)
+        if gvcf_mode:
+            header_lines += [
+                '##ALT=<ID=NON_REF,Description="Represents any possible alternative allele">',
+                '##FORMAT=<ID=MIN_DP,Number=1,Type=Integer,Description="Minimum DP observed within the GVCF block">',
+                '##INFO=<ID=END,Number=1,Type=Integer,Description="Stop position of the interval">',
+            ]
+        if "AS_StandardAnnotation" in args.annotation_group:
+            header_lines += [
+                '##INFO=<ID=AS_RAW_BaseQRankSum,Number=1,Type=String,Description="raw data for allele specific rank sum test of base qualities">',
+                '##INFO=<ID=AS_RAW_MQ,Number=A,Type=Float,Description="Allele-specfic raw data for RMS Mapping Quality">',
+                '##INFO=<ID=AS_RAW_MQRankSum,Number=1,Type=String,Description="Allele-specfic raw data for Mapping Quality Rank Sum">',
+                '##INFO=<ID=AS_RAW_ReadPosRankSum,Number=1,Type=String,Description="allele specific raw data for rank sum test of read position bias">',
+                '##INFO=<ID=AS_SB_TABLE,Number=1,Type=String,Description="Allele-specific forward/reverse read counts for strand bias tests">',
+                '##FORMAT=<ID=SB,Number=4,Type=Integer,Description="Per-sample component statistics which comprise the Fisher\'s Exact Test to detect strand bias.">',
+            ]
+        writer = vcf.VcfWriter(
+            out_path,
+            [sample],
+            contigs=[(s.name, s.length) for s in header.sequences],
+            extra_header_lines=header_lines,
+        )
+        ckpt = None
+        if args.checkpoint_dir:
+            from ..engine.checkpoint import ShardCheckpointer
+            ckpt = ShardCheckpointer(args.checkpoint_dir)
+        from ..engine.progress import ProgressMeter
+        from ..utils.javarandom import reset_random_generator
+        pm = ProgressMeter("HaplotypeCaller", unit="variants").start()
     n = 0
     for target in targets:
         # per-target RNG reset: makes each target's output independent of which
@@ -257,7 +262,7 @@ def haplotype_caller(argv):
                 n += 1
             pm.update(f"{target.contig}:{target.end}", n=0)
             continue
-        with STAGES.stage("bam_read"):
+        with trace.stage("bam_read", interval=target):
             reads = []
             for r in readers:
                 reads.extend(r.query(target.contig, max(0, target.start - 1000), target.end + 1000))
@@ -293,6 +298,4 @@ def haplotype_caller(argv):
         if args.distributed_process_id == 0:
             print(f"gathered {args.distributed_num_processes} shards into {args.output}")
     print(f"wrote {n} variants to {out_path}")
-    if os.environ.get("GATK_TPU_STAGE_TIMES"):
-        print(f"stage times: {STAGES.report()}")
     return 0

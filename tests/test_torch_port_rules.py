@@ -6,6 +6,7 @@ import ast
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -135,6 +136,32 @@ DEVICES_IMPORT = {"tools/mutect_tool.py": (9, "\n"),
                   "tools/misc_tools.py": (15, "from ..cli import")}
 
 
+# copy -> [(line of the original, the line the copy puts before it)]: the
+# tracer's decorators (gatk_tpu_torch/utils/trace.py), one line before a def,
+# on the functions whose stages and spans PERF.md's table of them lists; each
+# such copy also imports the tracer (TRACE_IMPORT, one more import line)
+TRACE_IMPORT = "from ..utils import trace\n"
+DECORATORS = {
+    "assembly/assembler.py": [(38, '@trace.stage("assembly")\n')],
+    "calling/genotyping_engine.py": [(52, '@trace.stage("genotype")\n')],
+    "calling/hc_engine.py": [(106, '@trace.stage("downsample")\n'),
+                             (290, '@trace.stage("finalize_reads")\n'),
+                             (327, '@trace.stage("pairhmm")\n'),
+                             (615, '@trace.span("hc.gvcf_interval")\n')],
+    "calling/read_prep.py": [(291, '@trace.stage("read_prep")\n')],
+    "engine/activity.py": [(111, '@trace.stage("activity_profile")\n'),
+                           (237, '@trace.stage("activity_profile")\n')],  # pop_regions
+    "gvcf/refconf.py": [(44, '@trace.stage("refconf")\n')],
+    "mutect/activity.py": [(163, '@trace.stage("m2_activity")\n')],
+    "mutect/engine.py": [(130, '    @trace.span("m2.call_interval")\n'),
+                         (175, '    @trace.stage("callable_sites")\n'),
+                         (204, '    @trace.span("m2.prepare_region")\n'),
+                         (227, '    @trace.span("m2.finish_region")\n'),
+                         (307, '    @trace.stage("somatic_genotype")\n')],
+}
+DECORATOR = re.compile(r'^ *@trace\.(stage|span)\("([A-Za-z0-9_.]+)"\)\n$')
+
+
 def _expected_changes(copy, original):
     """The source as its copy must read, apart from import lines."""
     lines = original.splitlines(keepends=True)
@@ -154,6 +181,14 @@ def _expected_changes(copy, original):
         n, before = DEVICES_IMPORT[rel]
         assert lines[n].startswith(before)
         lines[n:n] = ["from .. import devices\n"]
+    if rel in DECORATORS:
+        assert rel not in DEVICE_FLAGS and rel not in DEVICES_IMPORT
+        for n, line in sorted(DECORATORS[rel], reverse=True):
+            assert lines[n - 1].lstrip().startswith("def ")
+            lines[n - 1:n - 1] = [line]
+        # the tracer's import goes among the imports; placed after the last
+        n = max(node.end_lineno for node in ast.parse("".join(lines)).body if _is_import(node))
+        lines[n:n] = [TRACE_IMPORT]
     return "".join(lines)
 
 
@@ -172,6 +207,19 @@ def test_copied_module_is_verbatim(copy):
     skip = _import_lines(original) | _import_lines(body)
     diff = [i + 1 for i, (x, y) in enumerate(zip(a, b)) if x != y and i + 1 not in skip]
     assert diff == []
+
+
+@pytest.mark.parametrize("copy", sorted(DECORATORS))
+def test_decorator_lines_name_stages_that_perf_md_lists(copy):
+    """Each decorator line a copy may insert opens a stage or span of the
+    tracer, and PERF.md's table of the program's stages and spans names it
+    (`stage:<name>` or `span:<name>`)."""
+    with open(os.path.join(ROOT, "PERF.md")) as fh:
+        perf = fh.read()
+    for _, line in DECORATORS[copy]:
+        m = DECORATOR.match(line)
+        assert m, line
+        assert f"`{m[1]}:{m[2]}`" in perf, line
 
 
 def _top_level_blocks(src, skip):
