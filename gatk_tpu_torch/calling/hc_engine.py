@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm) and the tracer's decorator lines (utils/trace.py) differ.
+# Copied from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm), the tracer's decorator lines (utils/trace.py) and call_interval_gvcf (which hands each run of hom-ref positions between variants to GvcfBlockWriter.add_hom_ref_run) differ.
 """HaplotypeCaller engine: end-to-end single-sample germline calling.
 
 Reference behavior: haplotypecaller/HaplotypeCallerEngine.java (isActive :663-726,
@@ -686,42 +686,41 @@ def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interva
     )
     writer = refconf.GvcfBlockWriter(interval.contig, engine.sample,
                                      gq_bands=gq_bands, ploidy=args.ploidy)
-    vi = 0
     pos = interval.start
     iv_ref_u = bytes(iv_ref).upper()
-    while pos < interval.end:
-        if vi < len(variants) and variants[vi].pos == pos:
-            v = variants[vi]
-            g = v.samples[0]
-            if set(g.get("GT", "0").replace("|", "/").split("/")) == {"0"}:
-                # hom-ref call: collapse to a ref-block site using the
-                # (0/0, 0/NON_REF, NON_REF/NON_REF) PL entries (GVCFBlockCombiner)
-                pl_all = [int(x) for x in g["PL"].split(",")]
-                n_alleles = 1 + len(v.alts)
-                gts = genotyping_engine.genotyper.genotype_allele_counts(args.ploidy, n_alleles)
-                nr = n_alleles - 1
-                want = [tuple([0] * args.ploidy)]
-                for k in range(1, args.ploidy + 1):
-                    want.append(tuple(sorted([0] * (args.ploidy - k) + [nr] * k)))
-                idx = [gts.index(w) for w in want]
-                pl3 = [pl_all[i] for i in idx]
-                m = min(pl3)
-                pl3 = [x - m for x in pl3]
-                dp_v = int(g.get("DP", "0") or 0)
-                writer.add_hom_ref(pos, v.ref[0], pl3, dp_v)
-                pos += 1
-                vi += 1
-                continue
-            writer.add_variant(v)
-            pos = max(pos + 1, v.end)
-            vi += 1
-            continue
+
+    def hom_ref_run(start, end):
+        # the hom-ref positions [start, end), banded in bulk
+        a, b = start - interval.start, end - interval.start
+        writer.add_hom_ref_run(start, iv_ref_u[a:b], pls[a:b], dp[a:b])
+
+    for v in variants:
         # skip variants that start before pos (overlapping deletions)
-        if vi < len(variants) and variants[vi].pos < pos:
-            vi += 1
+        if v.pos < pos:
             continue
-        i = pos - interval.start
-        writer.add_hom_ref(pos, chr(iv_ref_u[i]), pls[i], int(dp[i]))
-        pos += 1
+        hom_ref_run(pos, v.pos)
+        pos = v.pos
+        g = v.samples[0]
+        if set(g.get("GT", "0").replace("|", "/").split("/")) == {"0"}:
+            # hom-ref call: collapse to a ref-block site using the
+            # (0/0, 0/NON_REF, NON_REF/NON_REF) PL entries (GVCFBlockCombiner)
+            pl_all = [int(x) for x in g["PL"].split(",")]
+            n_alleles = 1 + len(v.alts)
+            gts = genotyping_engine.genotyper.genotype_allele_counts(args.ploidy, n_alleles)
+            nr = n_alleles - 1
+            want = [tuple([0] * args.ploidy)]
+            for k in range(1, args.ploidy + 1):
+                want.append(tuple(sorted([0] * (args.ploidy - k) + [nr] * k)))
+            idx = [gts.index(w) for w in want]
+            pl3 = [pl_all[i] for i in idx]
+            m = min(pl3)
+            pl3 = [x - m for x in pl3]
+            dp_v = int(g.get("DP", "0") or 0)
+            writer.add_hom_ref(pos, v.ref[0], pl3, dp_v)
+            pos += 1
+            continue
+        writer.add_variant(v)
+        pos = max(pos + 1, v.end)
+    hom_ref_run(pos, interval.end)
     writer.flush()
     return writer.records

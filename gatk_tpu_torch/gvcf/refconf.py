@@ -1,4 +1,4 @@
-# Copied verbatim from gatk_tpu/gvcf/refconf.py; only import lines and the tracer's decorator lines (utils/trace.py) differ.
+# Copied from gatk_tpu/gvcf/refconf.py; only import lines, the tracer's decorator lines (utils/trace.py), ref_vs_any_gls (one dense pass over the interval's pileup elements, with _ref_vs_any_luts and _gqs_from_pls) and GvcfBlockWriter's banding of a run of hom-ref positions in bulk (add_hom_ref_run, and _ref_block, which builds flush's record) differ.
 """Reference-confidence model + GVCF hom-ref banding.
 
 Reference behavior: haplotypecaller/ReferenceConfidenceModel.java
@@ -48,69 +48,74 @@ def ref_vs_any_gls(reads, span_start: int, span_end: int, ref_span: np.ndarray,
                    min_base_qual: int = 10, ploidy: int = 2):
     """Vectorized per-position ref-vs-any genotype likelihoods.
 
-    Returns (pls, dp, ref_depth) where pls is (n_pos, ploidy+1) int PLs
-    (SNP model combined with the indel model), dp per-position depth.
+    Returns (pls, dp) where pls is (n_pos, ploidy+1) int PLs (SNP model
+    combined with the indel model), dp per-position depth.
+
+    One pass over the interval's pileup elements: each element's GL terms
+    depend only on (is_alt, qual), so they are gathered from (2, 256) tables
+    and summed per position with bincount, which adds in element (read)
+    order as a per-read np.add.at loop does, so the sums are the same bits.
     """
     n = span_end - span_start
-    gl = np.zeros((n, ploidy + 1))
-    dp = np.zeros(n, np.int64)
-    n_informative = np.zeros(n, np.int64)
-    read_count = np.zeros(n, np.int64)
     log10_ploidy = math.log10(ploidy)
+    el = pileup_mod.build_pileup_elements(reads, span_start, span_end)
+    is_del = (el["flags"] & pileup_mod.F_DELETION) > 0
+    # deletion bases get a constant qual 30 (getDeletionQuality pre-assembly path)
+    q = np.where(is_del, 30, el["qual"].astype(np.int64))
+    usable = q > min_base_qual
+    pos = el["pos"][usable]
+    q = q[usable]
+    is_del = is_del[usable]
+    is_alt = (el["base"][usable] != ref_span[pos]) | is_del
+    key = q + 256 * is_alt
 
-    for read in reads:
-        pos, base, qual, flags = pileup_mod.expand_read(read)
-        keep = (pos >= span_start) & (pos < span_end)
-        if not keep.any():
-            continue
-        pos = pos[keep] - span_start
-        base = base[keep]
-        qual = qual[keep].astype(np.float64)
-        flags = flags[keep]
-        is_del = (flags & pileup_mod.F_DELETION) > 0
-        # deletion bases get a constant qual 30 (getDeletionQuality pre-assembly path)
-        q = np.where(is_del, 30.0, qual)
-        usable = q > min_base_qual
-        if not usable.any():
-            continue
-        pos = pos[usable]
-        base = base[usable]
-        q = q[usable]
-        is_del = is_del[usable]
-        ref_b = ref_span[pos]
-        is_alt = (base != ref_b) | is_del
-        log_err = -q / 10.0
-        log_ok = np.log10(-np.expm1(log_err * math.log(10.0)))
-        ref_l = np.where(is_alt, log_err + LOG10_ONE_THIRD, log_ok)
-        alt_l = np.where(is_alt, log_ok, log_err + LOG10_ONE_THIRD)
-        np.add.at(gl[:, 0], pos, ref_l + log10_ploidy)
-        np.add.at(gl[:, ploidy], pos, alt_l + log10_ploidy)
-        for i in range(1, ploidy):
-            j = ploidy - i
-            het = np.logaddexp(
-                (ref_l + math.log10(j)) * math.log(10.0),
-                (alt_l + math.log10(i)) * math.log(10.0),
-            ) / math.log(10.0)
-            np.add.at(gl[:, i], pos, het)
-        np.add.at(read_count, pos, 1)
-        np.add.at(dp, pos, 1)
-        # indel informativeness: reads spanning the position (simplified
-        # calcNIndelInformativeReads: full model checks 10bp repeat context)
-        np.add.at(n_informative, pos, (~is_del).astype(np.int64))
+    gl = np.empty((n, ploidy + 1))
+    for i, lut in enumerate(_ref_vs_any_luts(ploidy)):
+        gl[:, i] = np.bincount(pos, weights=lut[key], minlength=n)
+    dp = np.bincount(pos, minlength=n)
+    # indel informativeness: reads spanning the position (simplified
+    # calcNIndelInformativeReads: full model checks 10bp repeat context)
+    n_informative = np.bincount(pos[~is_del], minlength=n)
 
-    gl -= (read_count * log10_ploidy)[:, None]
+    gl -= (dp * log10_ploidy)[:, None]
     # convert to PLs and combine with indel model per position
-    pls = np.zeros((n, ploidy + 1), int)
-    for i in range(n):
-        g = gl[i]
-        pl = np.round(-10.0 * (g - g.max())).astype(int)
-        ipl = indel_pls(ploidy, int(n_informative[i]))
-        # GATK caps the ref confidence by the indel model: take the
-        # entry-wise max of PL (lower confidence wins for GQ)
-        snp_gq = _gq_from_pls(pl)
-        indel_gq = _gq_from_pls(ipl)
-        pls[i] = pl if snp_gq <= indel_gq else ipl
+    pl = np.round(-10.0 * (gl - gl.max(axis=1, keepdims=True))).astype(int)
+    ipl_table = np.array([indel_pls(ploidy, m)
+                          for m in range(MAX_N_INDEL_INFORMATIVE_READS + 1)])
+    ipl = ipl_table[np.minimum(n_informative, MAX_N_INDEL_INFORMATIVE_READS)]
+    # GATK caps the ref confidence by the indel model: take the
+    # entry-wise max of PL (lower confidence wins for GQ)
+    snp_gq = _gqs_from_pls(pl)
+    indel_gq = _gqs_from_pls(ipl)
+    pls = np.where((snp_gq <= indel_gq)[:, None], pl, ipl)
     return pls, dp
+
+
+def _ref_vs_any_luts(ploidy: int) -> np.ndarray:
+    """(ploidy+1, 512) per-element GL terms, indexed by qual + 256 * is_alt:
+    the per-element formulas of the reference-confidence model, evaluated in
+    float64 once for every qual."""
+    ln10 = math.log(10.0)
+    q = np.arange(256, dtype=np.float64)
+    log_err = -q / 10.0
+    with np.errstate(divide="ignore"):  # qual 0, never usable
+        log_ok = np.log10(-np.expm1(log_err * ln10))
+    ref_l = np.concatenate([log_ok, log_err + LOG10_ONE_THIRD])
+    alt_l = np.concatenate([log_err + LOG10_ONE_THIRD, log_ok])
+    luts = np.empty((ploidy + 1, 512))
+    luts[0] = ref_l + math.log10(ploidy)
+    luts[ploidy] = alt_l + math.log10(ploidy)
+    for i in range(1, ploidy):
+        j = ploidy - i
+        luts[i] = np.logaddexp((ref_l + math.log10(j)) * ln10,
+                               (alt_l + math.log10(i)) * ln10) / ln10
+    return luts
+
+
+def _gqs_from_pls(pls: np.ndarray) -> np.ndarray:
+    """_gq_from_pls of each row."""
+    s = np.sort(pls, axis=1)
+    return np.minimum(s[:, 1] - s[:, 0], 99)
 
 
 def _gq_from_pls(pl) -> int:
@@ -151,6 +156,55 @@ class GvcfBlockWriter:
             self._block = dict(start=pos, end=pos + 1, band=band, ref=ref_base,
                                dps=[dp], min_gq=gq, pl=list(pl))
 
+    def add_hom_ref_run(self, start: int, ref_bases: bytes, pls, dps):
+        """add_hom_ref at start, start + 1, ... in turn, one position for each
+        entry of ref_bases, of the (n, ploidy+1) PL rows and of dps; banded in
+        bulk. Leaves the records and the open block as those calls would."""
+        n = len(dps)
+        if n == 0:
+            return
+        pls, dps = np.asarray(pls), np.asarray(dps)
+        gq = _gqs_from_pls(pls)
+        band_of_gq = np.array([self._band_index(g) for g in range(100)])
+        band = band_of_gq[gq]
+        # blocks break where the band changes
+        edges = np.flatnonzero(band[1:] != band[:-1]) + 1
+        starts = np.concatenate(([0], edges))
+        ends = np.concatenate((edges, [n]))
+        seg = np.repeat(np.arange(len(starts)), ends - starts)
+        # each block's first position of least GQ (add_hom_ref's strict <):
+        # a stable sort by (block, gq) puts it first among the block's
+        first_min = np.lexsort((gq, seg))[starts]
+        sorted_dps = dps[np.lexsort((dps, seg))]
+        median_dp = sorted_dps[starts + (ends - starts) // 2].tolist()
+        min_dp = sorted_dps[starts].tolist()
+        pl_rows = pls[first_min].tolist()
+        gq, band, dps = gq.tolist(), band.tolist(), dps.tolist()
+        starts, ends, first_min = starts.tolist(), ends.tolist(), first_min.tolist()
+
+        first = 0
+        b = self._block
+        if b is not None and b["band"] == band[0] and b["end"] == start:
+            # the run's first block continues the open one
+            b["end"] = start + ends[0]
+            b["dps"].extend(dps[:ends[0]])
+            if gq[first_min[0]] < b["min_gq"]:
+                b["min_gq"] = gq[first_min[0]]
+                b["pl"] = pl_rows[0]
+            first = 1
+        if first == len(starts):
+            return
+        self.flush()
+        # blocks that the run both opens and closes; the last stays open
+        for k in range(first, len(starts) - 1):
+            self.records.append(self._ref_block(
+                start + starts[k], start + ends[k], chr(ref_bases[starts[k]]),
+                median_dp[k], gq[first_min[k]], min_dp[k], pl_rows[k]))
+        a, e = starts[-1], ends[-1]
+        self._block = dict(start=start + a, end=start + e, band=band[a],
+                           ref=chr(ref_bases[a]), dps=dps[a:e], min_gq=gq[first_min[-1]],
+                           pl=pl_rows[-1])
+
     def add_variant(self, variant: Variant):
         self.flush()
         self.records.append(variant)
@@ -161,17 +215,20 @@ class GvcfBlockWriter:
             return
         self._block = None
         dps = sorted(b["dps"])
-        median_dp = dps[len(dps) // 2]
-        info = {} if b["end"] == b["start"] + 1 else {"END": str(b["end"])}
-        self.records.append(Variant(
-            contig=self.contig, pos=b["start"], ref=b["ref"], alts=("<NON_REF>",),
+        self.records.append(self._ref_block(b["start"], b["end"], b["ref"], dps[len(dps) // 2],
+                                            min(b["min_gq"], 99), dps[0], b["pl"]))
+
+    def _ref_block(self, start, end, ref, median_dp, gq, min_dp, pl) -> Variant:
+        info = {} if end == start + 1 else {"END": str(end)}
+        return Variant(
+            contig=self.contig, pos=start, ref=ref, alts=("<NON_REF>",),
             qual=None, filters=(), info=info,
             fmt_keys=("GT", "DP", "GQ", "MIN_DP", "PL"),
             samples=[{
                 "GT": "/".join(["0"] * self.ploidy),
                 "DP": str(median_dp),
-                "GQ": str(min(b["min_gq"], 99)),
-                "MIN_DP": str(min(dps)),
-                "PL": ",".join(str(int(x)) for x in b["pl"]),
+                "GQ": str(gq),
+                "MIN_DP": str(min_dp),
+                "PL": ",".join(map(str, map(int, pl))),
             }],
-        ))
+        )

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port (gatk_tpu_torch) that hold whatever it computes:
 it imports neither jax nor gatk_tpu, its copies of gatk_tpu's host modules stay
-verbatim (cnv/somatic.py but for build_panel_of_normals), and its entry points
+verbatim (cnv/somatic.py but for build_panel_of_normals, gvcf/refconf.py and
+calling/hc_engine.py but for the reference-confidence pass), and its entry points
 refuse to fall back to the CPU without a card."""
 import ast
 import json
@@ -58,7 +59,7 @@ def test_port_imports_neither_jax_nor_gatk_tpu():
 
 
 def test_every_module_named_in_a_header_is_copied():
-    assert len(_copied_files()) == 129
+    assert len(_copied_files()) == 127
 
 
 def _is_import(node):
@@ -241,6 +242,56 @@ def test_somatic_is_a_copy_but_for_the_panel_svd():
     skip = "build_panel_of_normals"
     assert _top_level_blocks(body, skip) == _top_level_blocks(original, skip)
     assert "torch.linalg.svd" in body and "jax" not in body
+
+
+def _named_blocks(src):
+    """(name, source) of each top-level statement but imports, decorators
+    included, a class's statements each on their own as `Class.name` after
+    the class's name and bases; a statement without a name has the name ''."""
+    lines = src.splitlines(keepends=True)
+
+    def segment(node):
+        first = min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", [])])
+        return "".join(lines[first - 1:node.end_lineno])
+
+    out = []
+    for node in ast.parse(src).body:
+        if _is_import(node):
+            continue
+        if isinstance(node, ast.ClassDef):
+            out.append((node.name, [ast.unparse(b) for b in node.bases]))
+            out += [(f"{node.name}.{getattr(sub, 'name', '')}", segment(sub)) for sub in node.body]
+        else:
+            out.append((getattr(node, "name", ""), segment(node)))
+    return out
+
+
+# copy -> (the functions and methods of gatk_tpu's that it rewrites, those it adds)
+REWRITTEN = {
+    "gvcf/refconf.py": ({"ref_vs_any_gls", "GvcfBlockWriter.flush"},
+                        {"_ref_vs_any_luts", "_gqs_from_pls", "GvcfBlockWriter.add_hom_ref_run",
+                         "GvcfBlockWriter._ref_block"}),
+    "calling/hc_engine.py": ({"call_interval_gvcf"}, set()),
+}
+
+
+@pytest.mark.parametrize("copy", sorted(REWRITTEN))
+def test_copy_is_gatk_tpus_but_for_its_reference_confidence_pass(copy):
+    """gvcf/refconf.py and calling/hc_engine.py are gatk_tpu's, after the
+    changes every copy may make (import lines, renames, the tracer's
+    decorators), but for the functions that compute reference confidence in
+    one dense pass and band hom-ref runs in bulk, and the helpers they add."""
+    with open(os.path.join(PORT, copy)) as fh:
+        header, body = fh.readline(), fh.read()
+    assert header.startswith(f"# Copied from gatk_tpu/{copy};")
+    with open(os.path.join(ROOT, "gatk_tpu", copy)) as fh:
+        original = _expected_changes(os.path.join("gatk_tpu_torch", copy), fh.read())
+    rewritten, added = REWRITTEN[copy]
+    got = _named_blocks(body)
+    assert [b for b in got if b[0] not in rewritten | added] == \
+        [b for b in _named_blocks(original) if b[0] not in rewritten]
+    assert rewritten | added <= {name for name, _ in got}
+    assert added.isdisjoint(name for name, _ in _named_blocks(original))
 
 
 def test_sharded_caller_raises_without_a_card(monkeypatch):
