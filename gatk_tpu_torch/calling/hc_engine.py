@@ -1,4 +1,4 @@
-# Copied from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm), the tracer's decorator lines (utils/trace.py) and call_interval_gvcf (which hands each run of hom-ref positions between variants to GvcfBlockWriter.add_hom_ref_run) differ.
+# Copied from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm), the tracer's decorator lines (utils/trace.py) and call_interval_gvcf (which picks each active region's reads with reads_overlapping, a sorted scan, and hands each run of hom-ref positions between variants to GvcfBlockWriter.add_hom_ref_run) differ.
 """HaplotypeCaller engine: end-to-end single-sample germline calling.
 
 Reference behavior: haplotypecaller/HaplotypeCallerEngine.java (isActive :663-726,
@@ -617,12 +617,22 @@ class HaplotypeCallerEngine:
         return variants, summary
 
 
+def reads_overlapping(reads, bounds, start: int, end: int):
+    """The reads of a coordinate-sorted list with pos < end and end > start, in
+    list order: the list scan `[r for r in reads if r.pos < end and r.end > start]`
+    as a searchsorted cut on the starts and one compare on the ends.
+    bounds: read_bounds_of(reads)."""
+    starts, ends = bounds
+    k = int(np.searchsorted(starts, end, side="left"))
+    return [reads[i] for i in np.flatnonzero(ends[:k] > start).tolist()]
+
+
 @trace.span("hc.gvcf_interval")
 def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interval,
                        gq_bands=None):
     """GVCF-mode calling: variant records carry <NON_REF>; hom-ref positions get
     banded reference-confidence blocks (HaplotypeCallerEngine.referenceModelForNoVariation
-    + GVCFWriter flow)."""
+    + GVCFWriter flow). reads must be coordinate-sorted."""
     from ..gvcf import refconf
 
     args = engine.args
@@ -632,6 +642,7 @@ def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interva
         if filters.hc_read_filter(r, args.min_mapping_quality, contig_len)
     ]
     usable = positional_downsample(usable, args.max_reads_per_alignment_start)
+    bounds = read_bounds_of(usable)
 
     span_start = max(0, interval.start - REGION_PADDING)
     span_end = min(contig_len, interval.end + REGION_PADDING)
@@ -651,8 +662,8 @@ def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interva
         region_span = Interval(interval.contig, span_start + rr.start, span_start + rr.end)
         if region_span.end <= interval.start or region_span.start >= interval.end:
             continue
-        region_reads = [r for r in usable if r.pos < region_span.end + REGION_PADDING
-                        and r.end > region_span.start - REGION_PADDING]
+        region_reads = reads_overlapping(usable, bounds, region_span.start - REGION_PADDING,
+                                         region_span.end + REGION_PADDING)
         padded = region_span.expand(REGION_PADDING, contig_len)
         final_reads = finalize_region_reads(region_reads, padded, args)
         if not final_reads:

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port (gatk_tpu_torch) that hold whatever it computes:
 it imports neither jax nor gatk_tpu, its copies of gatk_tpu's host modules stay
 verbatim (cnv/somatic.py but for build_panel_of_normals, gvcf/refconf.py and
-calling/hc_engine.py but for the reference-confidence pass), and its entry points
-refuse to fall back to the CPU without a card."""
+calling/hc_engine.py but for the reference-confidence pass and gvcf's sorted
+region-read scan), and its entry points refuse to fall back to the CPU without
+a card."""
 import ast
 import json
 import os
@@ -271,7 +272,7 @@ REWRITTEN = {
     "gvcf/refconf.py": ({"ref_vs_any_gls", "GvcfBlockWriter.flush"},
                         {"_ref_vs_any_luts", "_gqs_from_pls", "GvcfBlockWriter.add_hom_ref_run",
                          "GvcfBlockWriter._ref_block"}),
-    "calling/hc_engine.py": ({"call_interval_gvcf"}, set()),
+    "calling/hc_engine.py": ({"call_interval_gvcf"}, {"reads_overlapping"}),
 }
 
 
@@ -280,7 +281,8 @@ def test_copy_is_gatk_tpus_but_for_its_reference_confidence_pass(copy):
     """gvcf/refconf.py and calling/hc_engine.py are gatk_tpu's, after the
     changes every copy may make (import lines, renames, the tracer's
     decorators), but for the functions that compute reference confidence in
-    one dense pass and band hom-ref runs in bulk, and the helpers they add."""
+    one dense pass, band hom-ref runs in bulk and pick -ERC GVCF regions' reads
+    by a sorted scan, and the helpers they add."""
     with open(os.path.join(PORT, copy)) as fh:
         header, body = fh.readline(), fh.read()
     assert header.startswith(f"# Copied from gatk_tpu/{copy};")
