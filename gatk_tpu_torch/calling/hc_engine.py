@@ -1,4 +1,4 @@
-# Copied from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm), the tracer's decorator lines (utils/trace.py) and call_interval_gvcf (which picks each active region's reads with reads_overlapping, a sorted scan, and hands each run of hom-ref positions between variants to GvcfBlockWriter.add_hom_ref_run) differ.
+# Copied from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm), the tracer's decorator lines (utils/trace.py), the region front (assemble_region, shared by prepare_region and call_interval_gvcf, which picks a region's reads with reads_overlapping, a sorted scan), call_interval_gvcf (which plans through plan_interval and hands each run of hom-ref positions between variants to GvcfBlockWriter.add_hom_ref_run) and the removal of call_region differ.
 """HaplotypeCaller engine: end-to-end single-sample germline calling.
 
 Reference behavior: haplotypecaller/HaplotypeCallerEngine.java (isActive :663-726,
@@ -9,6 +9,7 @@ region batch (TPU) or via the host f64 reference (CPU testing).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 
@@ -344,6 +345,15 @@ def compute_pairhmm_likelihoods(haplotypes, reads, args: HCArgs) -> AlleleLikeli
     return lik
 
 
+class AssembledRegion(NamedTuple):
+    """An active region as assemble_region hands it on."""
+    padded: Interval
+    region_reads: list  # before finalize_region_reads (PD's pileup reads them)
+    final_reads: list
+    ref_bases: np.ndarray  # over padded
+    haplotypes: list
+
+
 class HaplotypeCallerEngine:
     def __init__(self, reference: fasta.FastaReference, sample: str = "SAMPLE", args: HCArgs | None = None):
         self.ref = reference
@@ -430,29 +440,17 @@ class HaplotypeCallerEngine:
         all_variants = [v for v in all_variants if interval.start <= v.pos < interval.end]
         return all_variants, summaries
 
-    def prepare_region(self, reads, span: Interval, device=None, batcher=None,
-                       read_bounds=None):
-        """Host-side assembly + non-blocking PairHMM launch for one region.
-
-        batcher: a pairhmm_tpu.PoolBatcher aggregating many regions' pairs into
-        pooled device launches (the VectorLoglessPairHMM.java:90 per-region
-        marshaling, batched across regions instead).
-        read_bounds: optional (starts, ends) int64 arrays for `reads`
-        (coordinate-sorted) — lets the per-region overlap scan be a
-        searchsorted + one vector compare instead of a python pass over every
-        read for every region (see read_bounds_of)."""
+    def assemble_region(self, reads, span: Interval, read_bounds):
+        """The front of every region's calling: its reads (reads_overlapping)
+        after finalize_region_reads, its reference and its assembled
+        haplotypes. None when no read is left, or the assembly finds at most
+        one haplotype or none with an event.
+        read_bounds: read_bounds_of(reads)."""
         args = self.args
         contig_len = self.ref.contig_length(span.contig)
         padded = span.expand(REGION_PADDING, contig_len)
         with STAGES.stage("finalize_reads"):
-            if read_bounds is not None:
-                starts, ends = read_bounds
-                k = int(np.searchsorted(starts, padded.end, side="left"))
-                sel = np.flatnonzero(ends[:k] > padded.start)
-                region_reads = [reads[int(i)] for i in sel]
-            else:
-                region_reads = [r for r in reads
-                                if r.pos < padded.end and r.end > padded.start]
+            region_reads = reads_overlapping(reads, read_bounds, padded.start, padded.end)
             final_reads = finalize_region_reads(region_reads, padded, args)
         if not final_reads:
             return None
@@ -465,6 +463,20 @@ class HaplotypeCallerEngine:
         haplotypes = result.haplotypes
         if len(haplotypes) <= 1 or not any(h.events for h in haplotypes):
             return None
+        return AssembledRegion(padded, region_reads, final_reads, ref_bases, haplotypes)
+
+    def prepare_region(self, reads, span: Interval, batcher, read_bounds):
+        """Host-side assembly + non-blocking PairHMM launch for one region.
+
+        batcher: a pairhmm.PoolBatcher aggregating many regions' pairs into
+        pooled device launches (the VectorLoglessPairHMM.java:90 per-region
+        marshaling, batched across regions instead).
+        read_bounds: read_bounds_of(reads)."""
+        region = self.assemble_region(reads, span, read_bounds)
+        if region is None:
+            return None
+        args = self.args
+        padded, region_reads, final_reads, ref_bases, haplotypes = region
         if args.flow_assembly_collapse_hmer_size > 0:
             from . import hap_collapsing
 
@@ -517,11 +529,7 @@ class HaplotypeCallerEngine:
         with STAGES.stage("read_prep"):
             prepped = read_prep.prepare_reads_for_pairhmm(final_reads)
         with STAGES.stage("pack_dispatch"):
-            if batcher is not None:
-                handle = batcher.add_region(prepped, [h.bases for h in haplotypes])
-            else:
-                handle = pairhmm.start_likelihood_matrix(
-                    prepped, [h.bases for h in haplotypes], device=device)
+            handle = batcher.add_region(prepped, [h.bases for h in haplotypes])
         return dict(span=span, padded=padded, final_reads=final_reads, prepped=prepped,
                     haplotypes=haplotypes, ref_bases=ref_bases, handle=handle)
 
@@ -576,46 +584,6 @@ class HaplotypeCallerEngine:
         summary.variants = variants
         return variants, summary
 
-    def call_region(self, reads, span: Interval):
-        args = self.args
-        contig_len = self.ref.contig_length(span.contig)
-        padded = span.expand(REGION_PADDING, contig_len)
-        region_reads = [r for r in reads if r.pos < padded.end and r.end > padded.start]
-        final_reads = finalize_region_reads(region_reads, padded, args)
-        summary = AssemblyRegionCall(span, padded, len(final_reads), 0)
-        if not final_reads:
-            return [], summary
-
-        ref_bases = self.ref.fetch(span.contig, padded.start, padded.end)
-        result = assembler.assemble(final_reads, ref_bases, padded.start,
-                                    min_base_qual=args.min_base_quality_score,
-                                    adaptive_pruning=args.adaptive_pruning,
-                                    use_junction_trees=args.linked_de_bruijn_graph)
-        haplotypes = result.haplotypes
-        summary.n_haplotypes = len(haplotypes)
-        if len(haplotypes) <= 1:
-            return [], summary
-        has_events = any(h.events for h in haplotypes)
-        if not has_events:
-            return [], summary
-
-        lik = compute_pairhmm_likelihoods(haplotypes, final_reads, args)
-        lik, haplotypes = maybe_filter_alleles(lik, args, span.start)
-        variants = genotyping_engine.assign_genotype_likelihoods(
-            haplotypes, lik, ref_bases, padded.start, span.start, span.end,
-            span.contig, self.sample,
-            standard_confidence=args.standard_confidence, ploidy=args.ploidy,
-            as_annotations=args.as_annotations,
-            output_mode=args.output_mode,
-            genotype_assignment_method=args.genotype_assignment_method,
-            apply_bqd=args.apply_bqd, apply_frd=args.apply_frd,
-            max_effective_depth_adjustment_for_frd=args.max_effective_depth_adjustment_for_frd,
-        )
-        if self.bamout is not None:
-            self.bamout.add_region(span.contig, haplotypes, lik)
-        summary.variants = variants
-        return variants, summary
-
 
 def reads_overlapping(reads, bounds, start: int, end: int):
     """The reads of a coordinate-sorted list with pos < end and end > start, in
@@ -628,59 +596,25 @@ def reads_overlapping(reads, bounds, start: int, end: int):
 
 
 @trace.span("hc.gvcf_interval")
-def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interval,
-                       gq_bands=None):
+def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interval):
     """GVCF-mode calling: variant records carry <NON_REF>; hom-ref positions get
     banded reference-confidence blocks (HaplotypeCallerEngine.referenceModelForNoVariation
     + GVCFWriter flow). reads must be coordinate-sorted."""
     from ..gvcf import refconf
 
     args = engine.args
-    contig_len = engine.ref.contig_length(interval.contig)
-    usable = [
-        r for r in reads
-        if filters.hc_read_filter(r, args.min_mapping_quality, contig_len)
-    ]
-    usable = positional_downsample(usable, args.max_reads_per_alignment_start)
+    usable, spans = engine.plan_interval(reads, interval)
     bounds = read_bounds_of(usable)
-
-    span_start = max(0, interval.start - REGION_PADDING)
-    span_end = min(contig_len, interval.end + REGION_PADDING)
-    ref_span = engine.ref.fetch(interval.contig, span_start, span_end)
-
-    probs, sc_mean = activity.compute_raw_activity(
-        usable, span_start, span_end, ref_span,
-        ploidy=args.ploidy, min_base_qual=args.min_base_quality_score,
-    )
-    smoothed = activity.band_pass(probs, sc_mean, (span_start, contig_len))
-    raw_regions = activity.pop_regions(smoothed)
-
     variants = []
-    for rr in raw_regions:
-        if not rr.is_active:
+    for region_span in spans:
+        region = engine.assemble_region(usable, region_span, bounds)
+        if region is None:
             continue
-        region_span = Interval(interval.contig, span_start + rr.start, span_start + rr.end)
-        if region_span.end <= interval.start or region_span.start >= interval.end:
-            continue
-        region_reads = reads_overlapping(usable, bounds, region_span.start - REGION_PADDING,
-                                         region_span.end + REGION_PADDING)
-        padded = region_span.expand(REGION_PADDING, contig_len)
-        final_reads = finalize_region_reads(region_reads, padded, args)
-        if not final_reads:
-            continue
-        ref_bases = engine.ref.fetch(interval.contig, padded.start, padded.end)
-        result = assembler.assemble(final_reads, ref_bases, padded.start,
-                                    min_base_qual=args.min_base_quality_score,
-                                    adaptive_pruning=args.adaptive_pruning,
-                                    use_junction_trees=args.linked_de_bruijn_graph)
-        haplotypes = result.haplotypes
-        if len(haplotypes) <= 1 or not any(h.events for h in haplotypes):
-            continue
-        lik = compute_pairhmm_likelihoods(haplotypes, final_reads, args)
+        lik = compute_pairhmm_likelihoods(region.haplotypes, region.final_reads, args)
         lik, haplotypes = maybe_filter_alleles(lik, args, region_span.start)
         variants.extend(genotyping_engine.assign_genotype_likelihoods(
-            haplotypes, lik, ref_bases, padded.start, region_span.start, region_span.end,
-            interval.contig, engine.sample,
+            haplotypes, lik, region.ref_bases, region.padded.start, region_span.start,
+            region_span.end, interval.contig, engine.sample,
             standard_confidence=-0.0, ploidy=args.ploidy,
             emit_all_active=True, add_non_ref=True,
             as_annotations=args.as_annotations,
@@ -690,15 +624,13 @@ def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interva
     variants.sort(key=lambda v: v.pos)
 
     # reference confidence over the interval; mask positions covered by variants
-    iv_ref = ref_span[interval.start - span_start : interval.end - span_start]
+    iv_ref_u = bytes(engine.ref.fetch(interval.contig, interval.start, interval.end)).upper()
     pls, dp = refconf.ref_vs_any_gls(
-        usable, interval.start, interval.end, np.frombuffer(bytes(iv_ref).upper(), np.uint8),
+        usable, interval.start, interval.end, np.frombuffer(iv_ref_u, np.uint8),
         min_base_qual=args.min_base_quality_score, ploidy=args.ploidy,
     )
-    writer = refconf.GvcfBlockWriter(interval.contig, engine.sample,
-                                     gq_bands=gq_bands, ploidy=args.ploidy)
+    writer = refconf.GvcfBlockWriter(interval.contig, engine.sample, ploidy=args.ploidy)
     pos = interval.start
-    iv_ref_u = bytes(iv_ref).upper()
 
     def hom_ref_run(start, end):
         # the hom-ref positions [start, end), banded in bulk

@@ -558,15 +558,6 @@ def compute_log10_likelihoods(reads, haps, pair_read_idx, pair_hap_idx, device=N
     return res
 
 
-def prewarm(*args, **kwargs):
-    """No-op: the kernel has no per-shape programs to compile ahead; it is built
-    once, at its first launch. Kept so callers of gatk_tpu's API run unchanged."""
-
-
-def prewarm_wait(timeout=None):
-    """No-op counterpart of prewarm."""
-
-
 # ---------------------------------------------------------------------------
 # Pooled cross-region dispatch
 #

@@ -1,9 +1,10 @@
 """Rules of the PyTorch port (gatk_tpu_torch) that hold whatever it computes:
 it imports neither jax nor gatk_tpu, its copies of gatk_tpu's host modules stay
-verbatim (cnv/somatic.py but for build_panel_of_normals, gvcf/refconf.py and
-calling/hc_engine.py but for the reference-confidence pass and gvcf's sorted
-region-read scan), and its entry points refuse to fall back to the CPU without
-a card."""
+verbatim (cnv/somatic.py but for build_panel_of_normals, gvcf/refconf.py but
+for the reference-confidence pass, calling/hc_engine.py but for the
+reference-confidence pass, the region front that the VCF and -ERC GVCF paths
+share and the per-region driver it drops), and its entry points refuse to fall
+back to the CPU without a card."""
 import ast
 import json
 import os
@@ -267,13 +268,21 @@ def _named_blocks(src):
     return out
 
 
-# copy -> (the functions and methods of gatk_tpu's that it rewrites, those it adds)
+# copy -> (the functions and methods of gatk_tpu's that it rewrites, those it
+# adds, those it removes); a class named here stands for its statements too
 REWRITTEN = {
     "gvcf/refconf.py": ({"ref_vs_any_gls", "GvcfBlockWriter.flush"},
                         {"_ref_vs_any_luts", "_gqs_from_pls", "GvcfBlockWriter.add_hom_ref_run",
-                         "GvcfBlockWriter._ref_block"}),
-    "calling/hc_engine.py": ({"call_interval_gvcf"}, {"reads_overlapping"}),
+                         "GvcfBlockWriter._ref_block"}, set()),
+    "calling/hc_engine.py": ({"call_interval_gvcf", "HaplotypeCallerEngine.prepare_region"},
+                             {"reads_overlapping", "AssembledRegion",
+                              "HaplotypeCallerEngine.assemble_region"},
+                             {"HaplotypeCallerEngine.call_region"}),
 }
+
+
+def _listed(name, names):
+    return name in names or name.split(".")[0] in names
 
 
 @pytest.mark.parametrize("copy", sorted(REWRITTEN))
@@ -281,19 +290,24 @@ def test_copy_is_gatk_tpus_but_for_its_reference_confidence_pass(copy):
     """gvcf/refconf.py and calling/hc_engine.py are gatk_tpu's, after the
     changes every copy may make (import lines, renames, the tracer's
     decorators), but for the functions that compute reference confidence in
-    one dense pass, band hom-ref runs in bulk and pick -ERC GVCF regions' reads
-    by a sorted scan, and the helpers they add."""
+    one dense pass and band hom-ref runs in bulk, the region front that
+    HaplotypeCaller's VCF and -ERC GVCF paths share (which picks a region's
+    reads by a sorted scan), the helpers they add, and the per-region driver
+    the copy drops."""
     with open(os.path.join(PORT, copy)) as fh:
         header, body = fh.readline(), fh.read()
     assert header.startswith(f"# Copied from gatk_tpu/{copy};")
     with open(os.path.join(ROOT, "gatk_tpu", copy)) as fh:
         original = _expected_changes(os.path.join("gatk_tpu_torch", copy), fh.read())
-    rewritten, added = REWRITTEN[copy]
+    rewritten, added, removed = REWRITTEN[copy]
     got = _named_blocks(body)
-    assert [b for b in got if b[0] not in rewritten | added] == \
-        [b for b in _named_blocks(original) if b[0] not in rewritten]
+    want = _named_blocks(original)
+    assert [b for b in got if not _listed(b[0], rewritten | added)] == \
+        [b for b in want if not _listed(b[0], rewritten | removed)]
     assert rewritten | added <= {name for name, _ in got}
-    assert added.isdisjoint(name for name, _ in _named_blocks(original))
+    assert added.isdisjoint(name for name, _ in want)
+    assert removed <= {name for name, _ in want}
+    assert removed.isdisjoint(name for name, _ in got)
 
 
 def test_sharded_caller_raises_without_a_card(monkeypatch):

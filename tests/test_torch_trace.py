@@ -22,7 +22,7 @@ from gatk_tpu_torch.utils.stopwatch import STAGES
 VCF_NAMES = {"hc.setup", "bam_read", "read_filter", "activity_profile", "prep_wait",
              "finalize_reads", "assembly", "read_prep", "pack_dispatch", "flush",
              "device_wait", "genotype"}
-GVCF_NAMES = {"hc.setup", "bam_read", "hc.gvcf_interval", "downsample", "activity_profile",
+GVCF_NAMES = {"hc.setup", "bam_read", "hc.gvcf_interval", "read_filter", "activity_profile",
               "finalize_reads", "assembly", "pairhmm", "genotype", "refconf"}
 M2_NAMES = {"m2.call_interval", "downsample", "m2_activity", "m2.prepare_region",
             "finalize_reads", "assembly", "read_prep", "pack_dispatch", "flush",
