@@ -657,26 +657,27 @@ def _launches_summary(kept):
 def counting_genotyped_pairs(hc_engine):
     """Counts reads x haplotypes of every region whose likelihoods were computed:
     regions genotyped by HaplotypeCallerEngine.finish_region (the pooled route)
-    and by compute_pairhmm_likelihoods (the -ERC GVCF route). Restores both."""
+    and by HaplotypeCallerEngine.finish_gvcf_region (the -ERC GVCF route, one
+    cartesian launch a region). Restores both."""
     total = [0]
-    finish = hc_engine.HaplotypeCallerEngine.finish_region
-    compute = hc_engine.compute_pairhmm_likelihoods
+    eng = hc_engine.HaplotypeCallerEngine
+    finish, finish_gvcf = eng.finish_region, eng.finish_gvcf_region
 
     def finish_counted(self, prep):
         total[0] += len(prep["prepped"]) * len(prep["haplotypes"])
         return finish(self, prep)
 
-    def compute_counted(haplotypes, reads, args):
-        total[0] += len(reads) * len(haplotypes)
-        return compute(haplotypes, reads, args)
+    def finish_gvcf_counted(self, prep, handle):
+        total[0] += len(prep.prepped) * len(prep.region.haplotypes)
+        return finish_gvcf(self, prep, handle)
 
-    hc_engine.HaplotypeCallerEngine.finish_region = finish_counted
-    hc_engine.compute_pairhmm_likelihoods = compute_counted
+    eng.finish_region = finish_counted
+    eng.finish_gvcf_region = finish_gvcf_counted
     try:
         yield total
     finally:
-        hc_engine.HaplotypeCallerEngine.finish_region = finish
-        hc_engine.compute_pairhmm_likelihoods = compute
+        eng.finish_region = finish
+        eng.finish_gvcf_region = finish_gvcf
 
 
 @contextlib.contextmanager

@@ -1,4 +1,4 @@
-# Copied from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm), the tracer's decorator lines (utils/trace.py), the region front (assemble_region, shared by prepare_region and call_interval_gvcf, which picks a region's reads with reads_overlapping, a sorted scan), call_interval_gvcf (which plans through plan_interval and hands each run of hom-ref positions between variants to GvcfBlockWriter.add_hom_ref_run) and the removal of call_region differ.
+# Copied from gatk_tpu/calling/hc_engine.py; only import lines, the PairHMM module name (pairhmm_tpu -> pairhmm), the tracer's decorator lines (utils/trace.py), the region front (assemble_region, shared by prepare_region and prepare_gvcf_region, which picks a region's reads with reads_overlapping, a sorted scan), call_interval_gvcf (which plans through plan_interval, hands its regions to parallel/scheduler.ShardedCaller, whose pool threads run prepare_gvcf_region while the calling thread computes reference confidence, then runs launch_gvcf_region and finish_gvcf_region in region order, and hands each run of hom-ref positions between variants to GvcfBlockWriter.add_hom_ref_run) and the removal of call_region and compute_pairhmm_likelihoods differ.
 """HaplotypeCaller engine: end-to-end single-sample germline calling.
 
 Reference behavior: haplotypecaller/HaplotypeCallerEngine.java (isActive :663-726,
@@ -329,22 +329,6 @@ def _well_defined_fragment(r):
     return r.pos <= r.mate_pos + r.tlen
 
 
-@trace.stage("pairhmm")
-def compute_pairhmm_likelihoods(haplotypes, reads, args: HCArgs) -> AlleleLikelihoods:
-    """reads x haplotypes log10 likelihood matrix via the cartesian Pallas kernel
-    (interpret mode on CPU backends)."""
-    prepped = read_prep.prepare_reads_for_pairhmm(reads)
-    hap_bases = [h.bases for h in haplotypes]
-    mat = pairhmm.compute_likelihood_matrix(prepped, hap_bases)  # (n_reads, n_haps)
-    values = mat.T  # (n_haps, n_reads)
-    lik = AlleleLikelihoods(list(haplotypes), list(reads), values)
-    lik.normalize_likelihoods(GLOBAL_READ_MISMAPPING_RATE_CAP)
-    lik.filter_poorly_modeled_reads(
-        lambda r: min(2.0, np.ceil(len(r.bases) * EXPECTED_ERROR_RATE_PER_BASE)) * -4.0
-    )
-    return lik
-
-
 class AssembledRegion(NamedTuple):
     """An active region as assemble_region hands it on."""
     padded: Interval
@@ -352,6 +336,14 @@ class AssembledRegion(NamedTuple):
     final_reads: list
     ref_bases: np.ndarray  # over padded
     haplotypes: list
+
+
+class GvcfPrep(NamedTuple):
+    """An -ERC GVCF region as prepare_gvcf_region hands it on."""
+    span: Interval
+    region: AssembledRegion
+    prepped: list  # read_prep.prepare_reads_for_pairhmm of region.final_reads
+    packing: tuple  # pairhmm.pack_likelihood_matrix of prepped and the haplotypes
 
 
 class HaplotypeCallerEngine:
@@ -584,6 +576,48 @@ class HaplotypeCallerEngine:
         summary.variants = variants
         return variants, summary
 
+    def prepare_gvcf_region(self, reads, span: Interval, read_bounds):
+        """-ERC GVCF's host front of one region, for a pool thread:
+        assemble_region, the reads' PairHMM tables and the packing of all
+        reads x all haplotypes. A GvcfPrep, or None where assemble_region gives
+        none. read_bounds: read_bounds_of(reads)."""
+        region = self.assemble_region(reads, span, read_bounds)
+        if region is None:
+            return None
+        prepped = read_prep.prepare_reads_for_pairhmm(region.final_reads)
+        with STAGES.stage("matrix_pack"):
+            packing = pairhmm.pack_likelihood_matrix(prepped, [h.bases for h in region.haplotypes])
+        return GvcfPrep(span, region, prepped, packing)
+
+    def launch_gvcf_region(self, prep: GvcfPrep, device=None):
+        """The region's cartesian launch on `device`, without blocking: the
+        handle for finish_gvcf_region."""
+        with STAGES.stage("matrix_launch"):
+            return pairhmm.launch_likelihood_matrix(prep.packing, device)
+
+    def finish_gvcf_region(self, prep: GvcfPrep, handle):
+        """Wait for a region's launch_gvcf_region and genotype it as -ERC GVCF
+        does: every active allele with <NON_REF>, no confidence cut. The
+        region's variants."""
+        args = self.args
+        span, region, prepped, _ = prep
+        haplotypes = region.haplotypes
+        mat = pairhmm.finish_likelihood_matrix(handle, prepped, [h.bases for h in haplotypes])
+        with STAGES.stage("genotype"):
+            lik = AlleleLikelihoods(list(haplotypes), list(region.final_reads), mat.T)
+            lik.normalize_likelihoods(GLOBAL_READ_MISMAPPING_RATE_CAP)
+            lik.filter_poorly_modeled_reads(
+                lambda r: min(2.0, np.ceil(len(r.bases) * EXPECTED_ERROR_RATE_PER_BASE)) * -4.0
+            )
+            lik, haplotypes = maybe_filter_alleles(lik, args, span.start)
+            return genotyping_engine.assign_genotype_likelihoods(
+                haplotypes, lik, region.ref_bases, region.padded.start, span.start, span.end,
+                span.contig, self.sample,
+                standard_confidence=-0.0, ploidy=args.ploidy,
+                emit_all_active=True, add_non_ref=True,
+                as_annotations=args.as_annotations,
+            )
+
 
 def reads_overlapping(reads, bounds, start: int, end: int):
     """The reads of a coordinate-sorted list with pos < end and end > start, in
@@ -596,39 +630,39 @@ def reads_overlapping(reads, bounds, start: int, end: int):
 
 
 @trace.span("hc.gvcf_interval")
-def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interval):
+def call_interval_gvcf(engine: "HaplotypeCallerEngine", reads, interval: Interval,
+                       caller=None):
     """GVCF-mode calling: variant records carry <NON_REF>; hom-ref positions get
     banded reference-confidence blocks (HaplotypeCallerEngine.referenceModelForNoVariation
-    + GVCFWriter flow). reads must be coordinate-sorted."""
+    + GVCFWriter flow). reads must be coordinate-sorted.
+    caller: the parallel.scheduler.ShardedCaller over `engine` whose pool runs the
+    active regions; None: one on the default device."""
+    from ..devices import resolve_device
     from ..gvcf import refconf
+    from ..parallel.scheduler import ShardedCaller
 
     args = engine.args
+    if caller is None:
+        caller = ShardedCaller(engine, [resolve_device()])
     usable, spans = engine.plan_interval(reads, interval)
-    bounds = read_bounds_of(usable)
-    variants = []
-    for region_span in spans:
-        region = engine.assemble_region(usable, region_span, bounds)
-        if region is None:
-            continue
-        lik = compute_pairhmm_likelihoods(region.haplotypes, region.final_reads, args)
-        lik, haplotypes = maybe_filter_alleles(lik, args, region_span.start)
-        variants.extend(genotyping_engine.assign_genotype_likelihoods(
-            haplotypes, lik, region.ref_bases, region.padded.start, region_span.start,
-            region_span.end, interval.contig, engine.sample,
-            standard_confidence=-0.0, ploidy=args.ploidy,
-            emit_all_active=True, add_non_ref=True,
-            as_annotations=args.as_annotations,
+    iv_ref_u = bytes(engine.ref.fetch(interval.contig, interval.start, interval.end)).upper()
+    gls = []
+
+    def ref_confidence():
+        # reference confidence over the interval, from the usable reads alone:
+        # on this thread while the pool threads assemble the regions
+        gls.append(refconf.ref_vs_any_gls(
+            usable, interval.start, interval.end, np.frombuffer(iv_ref_u, np.uint8),
+            min_base_qual=args.min_base_quality_score, ploidy=args.ploidy,
         ))
+
+    variants = caller.call_gvcf_regions(usable, spans, interval, meanwhile=ref_confidence)
+    pls, dp = gls[0]
 
     variants = [v for v in variants if interval.start <= v.pos < interval.end]
     variants.sort(key=lambda v: v.pos)
 
-    # reference confidence over the interval; mask positions covered by variants
-    iv_ref_u = bytes(engine.ref.fetch(interval.contig, interval.start, interval.end)).upper()
-    pls, dp = refconf.ref_vs_any_gls(
-        usable, interval.start, interval.end, np.frombuffer(iv_ref_u, np.uint8),
-        min_base_qual=args.min_base_quality_score, ploidy=args.ploidy,
-    )
+    # mask positions covered by variants
     writer = refconf.GvcfBlockWriter(interval.contig, engine.sample, ploidy=args.ploidy)
     pos = interval.start
 

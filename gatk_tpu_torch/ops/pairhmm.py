@@ -478,21 +478,36 @@ class _CartParts:
         return out.astype(dtype) if dtype is not None else out
 
 
-def start_likelihood_matrix(reads, haps, device=None):
-    """Pack and launch all reads x all haplotypes without blocking; returns an
-    opaque handle for finish_likelihood_matrix. One launch of the cartesian
-    kernel: the reads and haplotypes go to the device once, and each read's
-    tables are built once for all the haplotypes."""
-    dev = resolve_device(device)
+def pack_likelihood_matrix(reads, haps):
+    """The host half of start_likelihood_matrix: all reads and haplotypes
+    packed (packed reads, e, hlen) as make_pools takes them. numpy only, so a
+    host thread runs it without the device calls' trips through the GIL."""
     max_r = max(len(r["bases"]) for r in reads)
     max_h = max(len(h) for h in haps)
     rp = _bucket(max_r + 2, RP_BUCKETS)
     hmax = max(512, _bucket(max_h, HMAX_BUCKETS))
     packed, rp = pack_reads(reads, rp=rp, nr=len(reads))
     e, hlen, hmax = pack_haps(haps, rp, hmax=hmax, nh=len(haps))
+    return packed, e, hlen
+
+
+def launch_likelihood_matrix(packing, device=None):
+    """The device half of start_likelihood_matrix: a pack_likelihood_matrix
+    to the device and one launch of the cartesian kernel, without blocking;
+    returns the handle for finish_likelihood_matrix."""
+    packed, e, hlen = packing
+    dev = resolve_device(device)
     with _on(dev):
         pools = make_pools(packed, packed["rlen"], e, hlen, dev)
-        return _CartParts(_HostCopy(pairhmm_matrix(pools)), len(haps), len(reads))
+        return _CartParts(_HostCopy(pairhmm_matrix(pools)), hlen.size, packed["rlen"].size)
+
+
+def start_likelihood_matrix(reads, haps, device=None):
+    """Pack and launch all reads x all haplotypes without blocking; returns an
+    opaque handle for finish_likelihood_matrix. One launch of the cartesian
+    kernel: the reads and haplotypes go to the device once, and each read's
+    tables are built once for all the haplotypes."""
+    return launch_likelihood_matrix(pack_likelihood_matrix(reads, haps), device)
 
 
 def _apply_floor(mat, reads, haps, floor):

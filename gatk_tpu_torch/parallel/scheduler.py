@@ -4,10 +4,13 @@ Port of gatk_tpu/parallel/scheduler.py. Active-region detection runs once over
 each target interval on the host; host assembly of each region then feeds a
 pooled PairHMM batcher per device (regions round-robined over the devices),
 and regions are genotyped in coordinate order, so one-device and many-device
-runs give identical VCFs. split_interval_shards gives contiguous target shards
-for a per-process scatter-gather.
+runs give identical VCFs. -ERC GVCF's regions take the same pool threads, each
+with its own cartesian launch in place of the batcher. split_interval_shards
+gives contiguous target shards for a per-process scatter-gather.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -70,9 +73,11 @@ class ShardedCaller:
     """Schedules per-region calling work across devices.
 
     engine: HaplotypeCallerEngine (or any engine exposing plan_interval /
-    prepare_region / finish_region). devices: torch devices to round-robin
-    PairHMM batches onto; defaults to every local CUDA device and raises when
-    there is none, unless the caller passes [torch.device("cpu")].
+    prepare_region / finish_region, and for call_gvcf_regions
+    prepare_gvcf_region / launch_gvcf_region / finish_gvcf_region). devices:
+    torch devices to round-robin PairHMM batches onto; defaults to every
+    local CUDA device and raises when there is none, unless the caller passes
+    [torch.device("cpu")].
     """
 
     def __init__(self, engine, devices=None, host_threads: int | None = None):
@@ -88,65 +93,115 @@ class ShardedCaller:
             host_threads = max(2, min(6, 2 * cpus))
         self.engine = engine
         self.devices = [torch.device(d) for d in devices] if devices is not None else cuda_devices()
-        from ..ops.pairhmm import PoolBatcher
-        # one pooled cross-region dispatcher per device: regions' read x hap
-        # pairs aggregate into large launches (uint8 pools on the device,
-        # gathered in the kernel), round-robined across the devices
-        self.batchers = [PoolBatcher(device=d) for d in self.devices]
         # host assembly threads: regions assemble concurrently on CPU while
         # earlier regions' PairHMM batches run on the device. finish_region
         # stays serialized in region order so the shared seeded RNG (QD jitter)
         # and output ordering are identical to the sequential path.
         self.host_threads = max(1, host_threads)
 
-    def call_interval(self, reads, interval):
-        """Full pipeline on one interval: parallel host prepare feeding pooled
-        per-device PairHMM dispatch, then in-order genotyping.
-        Returns (variants, summaries) identical to engine.call_interval."""
+    @functools.cached_property
+    def batchers(self):
+        """One pooled cross-region dispatcher per device: regions' read x hap
+        pairs aggregate into large launches (uint8 pools on the device,
+        gathered in the kernel), round-robined across the devices. Built on
+        the VCF path's first use: -ERC GVCF fills none."""
+        from ..ops.pairhmm import PoolBatcher
+        return [PoolBatcher(device=d) for d in self.devices]
+
+    def _in_region_order(self, interval, spans, prepare, dispatch, finish, meanwhile=None):
+        """The pool loop: prepare(i, span) of every region on the pool threads;
+        on this thread meanwhile() while they run, then, a window of regions at
+        a time, dispatch(window) and finish(span, prep) of each region in
+        region order. window: [(i, span, prep)]; dispatch returns the window's
+        preps as finish takes them.
+        Windowed consume: finish window w while the pool threads prepare w+1
+        and the device runs what was dispatched — bounds live preps to ~WINDOW
+        regions instead of the whole interval (memory), while keeping finish
+        strictly in region order (shared seeded RNG)."""
         from concurrent.futures import ThreadPoolExecutor
 
-        from ..calling.hc_engine import AssemblyRegionCall, read_bounds_of
-
-        usable, spans = self.engine.plan_interval(reads, interval)
-        variants = []
-        summaries = []
-        bounds = read_bounds_of(usable)
-        # windowed consume: genotype window w while the pool threads assemble
-        # w+1 and the device runs its flushed batches — bounds live preps to
-        # ~WINDOW regions instead of the whole interval (memory), while
-        # keeping finish_region strictly in region order (shared seeded RNG).
         WINDOW = 64
         with ThreadPoolExecutor(max_workers=self.host_threads) as pool:
-            futures = [
-                [span, pool.submit(
-                    self.engine.prepare_region, usable, span,
-                    batcher=self.batchers[i % len(self.batchers)],
-                    read_bounds=bounds)]
-                for i, span in enumerate(spans)
-            ]
+            futures = [[span, pool.submit(prepare, i, span)] for i, span in enumerate(spans)]
+            if meanwhile is not None:
+                meanwhile()
             idx = 0
             n = len(futures)
             while idx < n:
                 hi = min(idx + WINDOW, n)
                 # the queue wait: this window's preps, from the pool threads
                 with trace.stage("prep_wait", interval=interval):
-                    window = [(f[0], f[1].result()) for f in futures[idx:hi]]
+                    window = [(i, f[0], f[1].result()) for i, f in enumerate(futures[idx:hi], idx)]
                 for f in futures[idx:hi]:
                     f[1] = None  # release the Future's reference to the prep
-                # materialize this window's handles: flush whatever is pooled
-                # (later windows' already-assembled regions ride along)
-                for b in self.batchers:
-                    b.flush()
-                for span, prep in window:
-                    if prep is None:
-                        summaries.append(AssemblyRegionCall(span, span, 0, 0))
-                        continue
-                    v, summary = self.engine.finish_region(prep)
-                    variants.extend(v)
-                    summaries.append(summary)
+                for (_, span, _), prep in zip(window, dispatch(window)):
+                    finish(span, prep)
                 idx = hi
+
+    def call_interval(self, reads, interval):
+        """Full pipeline on one interval: parallel host prepare feeding pooled
+        per-device PairHMM dispatch, then in-order genotyping.
+        Returns (variants, summaries) identical to engine.call_interval."""
+        from ..calling.hc_engine import AssemblyRegionCall, read_bounds_of
+
+        usable, spans = self.engine.plan_interval(reads, interval)
+        variants = []
+        summaries = []
+        bounds = read_bounds_of(usable)
+        batchers = self.batchers
+
+        def prepare(i, span):
+            return self.engine.prepare_region(usable, span, batcher=batchers[i % len(batchers)],
+                                              read_bounds=bounds)
+
+        def dispatch(window):
+            # materialize this window's handles: flush whatever is pooled
+            # (later windows' already-assembled regions ride along)
+            for b in batchers:
+                b.flush()
+            return [prep for _, _, prep in window]
+
+        def finish(span, prep):
+            if prep is None:
+                summaries.append(AssemblyRegionCall(span, span, 0, 0))
+                return
+            v, summary = self.engine.finish_region(prep)
+            variants.extend(v)
+            summaries.append(summary)
+
+        self._in_region_order(interval, spans, prepare, dispatch, finish)
         variants = [v for v in variants if interval.start <= v.pos < interval.end]
         return variants, summaries
+
+    def call_gvcf_regions(self, usable, spans, interval, meanwhile=None):
+        """The variants of -ERC GVCF's active regions `spans` of `interval`
+        (hc_engine.call_interval_gvcf), in region order. The pool threads run
+        engine.prepare_gvcf_region (assembly, read prep, packing); this thread
+        runs meanwhile() while they do, then each window's cartesian launches
+        (engine.launch_gvcf_region, round-robined over the devices) and
+        engine.finish_gvcf_region of each region. The launches stay here: a
+        pool thread's device calls each give up the GIL and wait to take it
+        back from the threads running Python.
+        usable: the interval's reads as engine.plan_interval leaves them."""
+        from ..calling.hc_engine import read_bounds_of
+
+        bounds = read_bounds_of(usable)
+        variants = []
+
+        def prepare(i, span):
+            return self.engine.prepare_gvcf_region(usable, span, bounds)
+
+        def dispatch(window):
+            return [None if prep is None else
+                    (prep, self.engine.launch_gvcf_region(prep, self.devices[i % len(self.devices)]))
+                    for i, _, prep in window]
+
+        def finish(span, launched):
+            if launched is not None:
+                variants.extend(self.engine.finish_gvcf_region(*launched))
+
+        self._in_region_order(interval, spans, prepare, dispatch, finish, meanwhile)
+        return variants
 
     # per-shard failure containment: transient device/host errors on one shard
     # retry with fresh state instead of killing the whole traversal; after the

@@ -133,8 +133,8 @@ def haplotype_caller(argv):
         # the call's fixed cost: arguments, reference, BAM, engine, scheduler
         args = _parser().parse_args(argv)
 
-        # the device choice holds for every PairHMM caller, including the -ERC GVCF
-        # route, which passes no device (hc_engine.compute_pairhmm_likelihoods)
+        # the device choice holds for every PairHMM caller that passes no device
+        # (the FlowBasedHMM route among them)
         devices.set_default_device(args.device)
         # None: every local CUDA device (ShardedCaller), in each process of a
         # distributed run too
@@ -268,7 +268,7 @@ def haplotype_caller(argv):
                 reads.extend(r.query(target.contig, max(0, target.start - 1000), target.end + 1000))
             reads.sort(key=lambda x: (x.pos, x.name))
         if gvcf_mode:
-            records = hc_engine.call_interval_gvcf(engine, reads, target)
+            records = hc_engine.call_interval_gvcf(engine, reads, target, caller)
         else:
             variants, _ = caller.call_interval(reads, target)
             records = sorted(variants, key=lambda x: x.pos)

@@ -3,8 +3,9 @@ it imports neither jax nor gatk_tpu, its copies of gatk_tpu's host modules stay
 verbatim (cnv/somatic.py but for build_panel_of_normals, gvcf/refconf.py but
 for the reference-confidence pass, calling/hc_engine.py but for the
 reference-confidence pass, the region front that the VCF and -ERC GVCF paths
-share and the per-region driver it drops), and its entry points refuse to fall
-back to the CPU without a card."""
+share, -ERC GVCF's regions on the scheduler's pool, and the per-region driver
+and serial PairHMM call it drops), and its entry points refuse to fall back to
+the CPU without a card."""
 import ast
 import json
 import os
@@ -149,7 +150,6 @@ DECORATORS = {
     "calling/genotyping_engine.py": [(52, '@trace.stage("genotype")\n')],
     "calling/hc_engine.py": [(106, '@trace.stage("downsample")\n'),
                              (290, '@trace.stage("finalize_reads")\n'),
-                             (327, '@trace.stage("pairhmm")\n'),
                              (615, '@trace.span("hc.gvcf_interval")\n')],
     "calling/read_prep.py": [(291, '@trace.stage("read_prep")\n')],
     "engine/activity.py": [(111, '@trace.stage("activity_profile")\n'),
@@ -275,9 +275,12 @@ REWRITTEN = {
                         {"_ref_vs_any_luts", "_gqs_from_pls", "GvcfBlockWriter.add_hom_ref_run",
                          "GvcfBlockWriter._ref_block"}, set()),
     "calling/hc_engine.py": ({"call_interval_gvcf", "HaplotypeCallerEngine.prepare_region"},
-                             {"reads_overlapping", "AssembledRegion",
-                              "HaplotypeCallerEngine.assemble_region"},
-                             {"HaplotypeCallerEngine.call_region"}),
+                             {"reads_overlapping", "AssembledRegion", "GvcfPrep",
+                              "HaplotypeCallerEngine.assemble_region",
+                              "HaplotypeCallerEngine.prepare_gvcf_region",
+                              "HaplotypeCallerEngine.launch_gvcf_region",
+                              "HaplotypeCallerEngine.finish_gvcf_region"},
+                             {"HaplotypeCallerEngine.call_region", "compute_pairhmm_likelihoods"}),
 }
 
 
@@ -292,8 +295,9 @@ def test_copy_is_gatk_tpus_but_for_its_reference_confidence_pass(copy):
     decorators), but for the functions that compute reference confidence in
     one dense pass and band hom-ref runs in bulk, the region front that
     HaplotypeCaller's VCF and -ERC GVCF paths share (which picks a region's
-    reads by a sorted scan), the helpers they add, and the per-region driver
-    the copy drops."""
+    reads by a sorted scan), -ERC GVCF's prepare, launch and finish of a
+    region for the scheduler's pool, the helpers they add, and the per-region
+    driver and serial PairHMM call the copy drops."""
     with open(os.path.join(PORT, copy)) as fh:
         header, body = fh.readline(), fh.read()
     assert header.startswith(f"# Copied from gatk_tpu/{copy};")

@@ -23,7 +23,8 @@ VCF_NAMES = {"hc.setup", "bam_read", "read_filter", "activity_profile", "prep_wa
              "finalize_reads", "assembly", "read_prep", "pack_dispatch", "flush",
              "device_wait", "genotype"}
 GVCF_NAMES = {"hc.setup", "bam_read", "hc.gvcf_interval", "read_filter", "activity_profile",
-              "finalize_reads", "assembly", "pairhmm", "genotype", "refconf"}
+              "prep_wait", "finalize_reads", "assembly", "read_prep", "matrix_pack",
+              "matrix_launch", "device_wait", "genotype", "refconf"}
 M2_NAMES = {"m2.call_interval", "downsample", "m2_activity", "m2.prepare_region",
             "finalize_reads", "assembly", "read_prep", "pack_dispatch", "flush",
             "m2.finish_region", "device_wait", "somatic_genotype", "callable_sites"}
